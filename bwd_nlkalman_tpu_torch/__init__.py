@@ -1,16 +1,20 @@
 """bwd_nlkalman_tpu_torch — the PyTorch/CUDA port of bwd_nlkalman_tpu.
 
 The JAX package stays the reference; this package mirrors its module
-names. Plain tensor code is PyTorch; each Pallas kernel of the ported
-path is a hand-written CUDA kernel under ``csrc/``, built at first use
+names. Plain tensor code is PyTorch; each Pallas kernel of the JAX
+package is a hand-written CUDA kernel under ``csrc/``, built at first use
 by ``_build.py``:
 
-- K1 the NL-Kalman pass   (``core/engine_cuda.py``, ``csrc/nlk_pass.cu``)
-- K2 the TV-L1 level      (``flow/tvl1_cuda.py``,   ``csrc/tvl1_level.cu``)
-- K4 the bicubic warp     (``ops/warp_cuda.py``,    ``csrc/warp.cu``)
+- K1 the NL-Kalman pass      (``core/engine_cuda.py``,     ``csrc/nlk_pass.cu``)
+- K2 the TV-L1 level         (``flow/tvl1_cuda.py``,       ``csrc/tvl1_level.cu``)
+- K3 the TV-L1 tiled block   (``flow/tvl1_block_cuda.py``, ``csrc/tvl1_block.cu``)
+- K4 the bicubic warp        (``ops/warp_cuda.py``,        ``csrc/warp.cu``)
+- P  the streaming-rate probe (``tools/vpu_probe.py``,     ``csrc/probe.cu``)
 
 Each kernel runs on CUDA tensors; on CPU tensors its plain PyTorch
-version runs instead. This package never imports JAX.
+version runs instead. Entry points (``NLKalmanDenoiser``, the CLIs under
+``cli/``) run on the card unless asked for the CPU. This package imports
+neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"
@@ -22,7 +26,9 @@ from .pipeline import FlowConfig, NLKalmanDenoiser, denoise_sequence  # noqa: F4
 def kernel_counters():
     """The launch counters of the ported kernels, by kernel id."""
     from .core.engine_cuda import LAUNCHES as k1
+    from .flow.tvl1_block_cuda import LAUNCHES as k3
     from .flow.tvl1_cuda import LAUNCHES as k2
     from .ops.warp_cuda import LAUNCHES as k4
+    from .tools.vpu_probe import LAUNCHES as p
 
-    return {"K1": k1, "K2": k2, "K4": k4}
+    return {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "P": p}

@@ -1,11 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-All ``csrc/*.cu`` files compile with ``nvcc`` into one shared library
-with a plain C interface, loaded with ``ctypes``. The build runs at first
-use, from the sources in the checkout alone, into
-``build/torch_kernels/<hash>/`` at the repository root, where ``<hash>``
-is a digest of the sources and the compiler flags: a changed source
-builds anew, an unchanged one loads the library already built.
+Each ``csrc/*.cu`` file compiles with its own ``nvcc``, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ``ctypes``. The build runs at first use, from the
+sources in the checkout alone, into ``build/torch_kernels/<hash>/`` at
+the repository root, where ``<hash>`` is a digest of the sources and the
+compiler flags: a changed source builds anew, an unchanged one loads the
+library already built. Each source's ``ptxas`` report (registers, shared
+memory, spills per kernel) is kept beside it as ``<source>.log``.
 """
 
 from __future__ import annotations
@@ -22,10 +24,9 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parent.parent / "build" / "torch_kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v")
 LIB_NAME = "libbnlk_kernels.so"
 
 _P = ctypes.c_void_p
@@ -36,7 +37,10 @@ _D = ctypes.c_double
 # C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
     "bnlk_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "bnlk_tvl1_level": [_P, _P, _P, _P, _I, _I, _I, _D, _F, _D, _D, _I, _I, _P],
+    "bnlk_tvl1_level": [_P, _P, _P, _P, _I, _I, _I, _D, _F, _D, _D, _I, _I, _P,
+                        _P],
+    "bnlk_tvl1_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P],
+    "bnlk_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bnlk_nlk_dct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "bnlk_nlk_sites": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                        _I, _I, _I, _F, _F, _F, _F, _F, _P],
@@ -77,15 +81,31 @@ def build() -> tuple[Path, float]:
         return lib, 0.0
     out_dir.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    cu = [str(p) for p in sorted(CSRC.glob("*.cu"))]
+    nvcc = _nvcc()
+    jobs = []
+    for cu in sorted(CSRC.glob("*.cu")):
+        obj = out_dir / (cu.stem + ".o")
+        log = open(out_dir / (cu.name + ".log"), "w")
+        jobs.append((cu, log, subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(cu), "-o", str(obj)],
+            stdout=log, stderr=subprocess.STDOUT, text=True)))
+    failed = []
+    for cu, log, proc in jobs:
+        if proc.wait() != 0:
+            failed.append(cu.name)
+        log.close()
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n" + "".join(
+            (out_dir / (name + ".log")).read_text() for name in failed))
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=out_dir)
     os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp, *cu]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    res = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp,
+                          *(str(out_dir / (cu.stem + ".o")) for cu, _, _ in jobs)],
+                         capture_output=True, text=True)
     if res.returncode != 0:
         os.unlink(tmp)
         raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+            f"nvcc link failed ({res.returncode}):\n{res.stdout}\n{res.stderr}")
     os.replace(tmp, lib)
     return lib, time.perf_counter() - t0
 

@@ -43,13 +43,14 @@ def check_tensor(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
 
 
 class LaunchCounter:
-    """Plain integer count of a kernel's launches (one per wrapper call)."""
+    """Plain integer count of a kernel's launches (one per wrapper call),
+    or of the work they did."""
 
     def __init__(self):
         self.count = 0
 
-    def add(self) -> None:
-        self.count += 1
+    def add(self, n: int = 1) -> None:
+        self.count += n
 
     def reset(self) -> None:
         self.count = 0

@@ -1,9 +1,9 @@
 """Carry JAX-side configuration and state into the port.
 
 The system has no learned weights: its parameters are the ``NLKParams``
-(shared by both packages, see ``params.py``) and the ``FlowConfig``; its
-state is the forward scan's carry (flt1, flt2 and, with warm-started
-flow, the level-fscale flow).
+and the ``FlowConfig``, each package holding its own classes; its state
+is the forward scan's carry (flt1, flt2 and, with warm-started flow, the
+level-fscale flow).
 """
 
 from __future__ import annotations
@@ -13,7 +13,14 @@ import dataclasses
 import numpy as np
 import torch
 
+from .params import NLKParams
 from .pipeline.sequence import FlowConfig
+
+
+def params_from_jax(p) -> NLKParams:
+    """The port's NLKParams with the same field values as a JAX NLKParams."""
+    return NLKParams(**{f.name: getattr(p, f.name)
+                        for f in dataclasses.fields(NLKParams)})
 
 
 def flow_config_from_jax(cfg) -> FlowConfig:

@@ -14,9 +14,10 @@
 //     neighbours (the dual step needs their forward differences), so one
 //     launch is one whole iteration, reading the old state and writing
 //     the new one (ping-pong buffers);
-//   - err_kernel, once per round of k_check iterations: sums the block
-//     partials of the last iteration's squared update in a fixed order.
-//     The host reads that one float to decide whether to go on.
+//   - bnlk_mean_of_partials (block_sum.cuh), once per round of k_check
+//     iterations: sums the block partials of the last iteration's squared
+//     update in a fixed order. The host reads that one float to decide
+//     whether to go on.
 //
 // K2's own semantics, not the XLA path's: the clamp form of the threshold
 // step fi = clip(rho * nig, -l_t, l_t) (tvl1_fused.py:200-209, 236-242);
@@ -36,6 +37,7 @@
 #include <cuda_runtime.h>
 
 #include "bicubic.cuh"
+#include "block_sum.cuh"
 
 namespace {
 
@@ -121,32 +123,9 @@ __global__ void iter_kernel(Level L, const float* __restrict__ u,
     }
   }
   if (!want_err) return;
-  // fixed-order block reduction: warp butterflies, then warp 0 over warps
-  __shared__ float warp_sums[kBx * kBy / 32];
-  for (int off = 16; off > 0; off >>= 1)
-    e += __shfl_xor_sync(0xffffffffu, e, off);
-  const int t = threadIdx.y * kBx + threadIdx.x;
-  if ((t & 31) == 0) warp_sums[t >> 5] = e;
-  __syncthreads();
-  if (t == 0) {
-    float s = 0.0f;
-    for (int k = 0; k < kBx * kBy / 32; ++k) s += warp_sums[k];
+  const float s = bnlk_block_sum<kBx * kBy>(e);
+  if (threadIdx.x == 0 && threadIdx.y == 0)
     partials[blockIdx.y * gridDim.x + blockIdx.x] = s;
-  }
-}
-
-__global__ void err_kernel(const float* __restrict__ partials, int n_part,
-                           float size, float* __restrict__ err) {
-  __shared__ float sums[256];
-  float s = 0.0f;
-  for (int k = threadIdx.x; k < n_part; k += 256) s += partials[k];
-  sums[threadIdx.x] = s;
-  __syncthreads();
-  for (int half = 128; half > 0; half >>= 1) {
-    if ((int)threadIdx.x < half) sums[threadIdx.x] += sums[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *err = sums[0] / size;
 }
 
 }  // namespace
@@ -154,12 +133,13 @@ __global__ void err_kernel(const float* __restrict__ partials, int n_part,
 // i0: (h, w); i1s: (h, w, 3) = (I1, I1x, I1y) interleaved; u: (2, h, w)
 // initial flow planes, overwritten with the result. scratch holds
 // 2*2 + 2*4 + 4 planes of h*w floats plus n_part + 1 floats, where
-// n_part = ceil(w/32) * ceil(h/8).
+// n_part = ceil(w/32) * ceil(h/8). *iters (host memory) receives the
+// number of primal-dual iterations run over all warp stages.
 extern "C" int bnlk_tvl1_level(const void* i0, const void* i1s, void* u,
                                void* scratch, int h, int w, int nwarps,
                                double tau, float lambda, double theta,
                                double epsilon, int k_check, int max_iters,
-                               void* stream_) {
+                               void* iters, void* stream_) {
   cudaStream_t stream = (cudaStream_t)stream_;
   const size_t n = (size_t)h * w;
   float* base = (float*)scratch;
@@ -184,7 +164,7 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1s, void* u,
   cudaMemcpyAsync(ub[0], u, 2 * n * sizeof(float), cudaMemcpyDeviceToDevice,
                   stream);
   cudaMemsetAsync(pb[0], 0, 4 * n * sizeof(float), stream);
-  int cur = 0;
+  int cur = 0, total = 0;
   for (int wi = 0; wi < nwarps; ++wi) {
     consts_kernel<<<grid, block, 0, stream>>>((const float*)i0,
                                               (const float*)i1s, ub[cur], cs,
@@ -198,8 +178,8 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1s, void* u,
                                                 partials, j == k_check - 1);
         cur = 1 - cur;
       }
-      err_kernel<<<1, 256, 0, stream>>>(partials, n_part, (float)n,
-                                        err_dev);
+      bnlk_mean_of_partials<<<1, kMeanThreads, 0, stream>>>(
+          partials, n_part, (float)n, err_dev);
       cudaError_t e = cudaGetLastError();
       if (e != cudaSuccess) return (int)e;
       e = cudaMemcpyAsync(&err, err_dev, sizeof(float),
@@ -209,7 +189,9 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1s, void* u,
       if (e != cudaSuccess) return (int)e;
       it += k_check;
     }
+    total += it;
   }
+  *(int*)iters = total;
   cudaMemcpyAsync(u, ub[cur], 2 * n * sizeof(float), cudaMemcpyDeviceToDevice,
                   stream);
   return (int)cudaGetLastError();

@@ -2,10 +2,11 @@
 
 Coarse-to-fine pyramid with zoom 0.5, flow upscaling by 1/zfactor and the
 ``fscale`` early stop (tvl1flow_lib.c:345-474), plus the warm-started
-streaming variant with its residual gate. Every solved level goes to the
-whole-level solver at K2's semantics (``tvl1_fused.py``), as the JAX
-package dispatches on the TPU; a level beyond K2's plan would need the
-tiled kernel K3, which is not ported yet, and raises on every device.
+streaming variant with its residual gate. A solved level goes, as the
+JAX package dispatches on the TPU, to the whole-level solver at K2's
+semantics (``tvl1_fused.py``) when it fits K2's plan, else to the tiled
+solver at K3's semantics (``tvl1_tiled.py``): at 1080p the 1080x1920
+level of a full-resolution (fscale=0) flow.
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from ..ops.warp import bicubic_warp
 from ..ops.zoom import (_resample_matrix_np, _zoom_out_matrix_np, zoom_in,
                         zoom_in_keys, zoom_out, zoom_out_keys, zoom_size)
 from .tvl1_fused import fused_level_supported, tvl1_single_scale_fused
+from .tvl1_tiled import tvl1_single_scale_tiled
 
 MAX_ITERATIONS = 300          # tvl1flow_lib.c:24
 PRESMOOTHING_SIGMA = 0.8      # tvl1flow_lib.c:25
@@ -85,13 +87,12 @@ def _k_check(npx: int) -> int:
 
 def _solve_level(a, b, u, *, tau, lambda_, theta, nwarps, epsilon, max_iters,
                  engine="auto"):
-    """Single-scale solve dispatch, as the JAX package's (flow/tvl1.py:203)."""
+    """Single-scale solve dispatch, as the JAX package's (flow/tvl1.py:196-235)."""
     h, w = a.shape
     if not fused_level_supported(h, w):
-        raise NotImplementedError(
-            f"TV-L1 level {h}x{w} exceeds the whole-level solver's plan; it "
-            "needs the tiled level kernel K3 (flow/tvl1_pallas.py), which is "
-            "not ported yet")
+        return tvl1_single_scale_tiled(
+            a, b, u, tau=tau, lambda_=lambda_, theta=theta, nwarps=nwarps,
+            epsilon=epsilon, max_iters=max_iters, engine=engine)
     return tvl1_single_scale_fused(
         a, b, u, tau=tau, lambda_=lambda_, theta=theta, nwarps=nwarps,
         epsilon=epsilon, k_check=_k_check(h * w), max_iters=max_iters,

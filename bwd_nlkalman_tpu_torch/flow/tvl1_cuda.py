@@ -16,6 +16,7 @@ from .._dispatch import LaunchCounter, check_tensor
 from ..ops.grad import centered_gradient
 
 LAUNCHES = LaunchCounter()
+ITERATIONS = LaunchCounter()   # primal-dual iterations run, all warp stages
 
 
 def tvl1_level_cuda(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
@@ -33,9 +34,11 @@ def tvl1_level_cuda(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
     u = u_init.permute(2, 0, 1).contiguous()
     n_part = -(-w // 32) * -(-h // 8)
     scratch = torch.empty(16 * h * w + n_part + 1, dtype=torch.float32, device=dev)
+    iters = ctypes.c_int(0)
     call("bnlk_tvl1_level", i0.data_ptr(), i1s.data_ptr(), u.data_ptr(),
          scratch.data_ptr(), h, w, int(nwarps), float(tau), float(lambda_),
          float(theta), float(epsilon), int(k_check), int(max_iters),
-         ctypes.c_void_p(stream_ptr(dev)))
+         ctypes.addressof(iters), ctypes.c_void_p(stream_ptr(dev)))
     LAUNCHES.add()
+    ITERATIONS.add(iters.value)
     return u.permute(1, 2, 0).contiguous()

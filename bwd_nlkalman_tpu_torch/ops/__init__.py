@@ -1,9 +1,10 @@
 """Image ops of the port: color, windows, DCT, warps (K4), gradients,
-Gaussian blur and zoom."""
+Gaussian blur, zoom and the reference-exact AWGN."""
 
 from .color import opp2rgb, rgb2opp  # noqa: F401
 from .dct import dct_image_all_patches  # noqa: F401
 from .gaussian import gaussian_blur  # noqa: F401
+from .noise import awgn, lcg_knuth_normals  # noqa: F401
 from .grad import centered_gradient, divergence, forward_gradient  # noqa: F401
 from .warp import (  # noqa: F401
     bicubic_warp,

@@ -1,5 +1,7 @@
-"""Whole-sequence denoising of the port and the ``NLKalmanDenoiser`` module."""
+"""Whole-sequence denoising of the port, the ``NLKalmanDenoiser`` module
+and the ground-truth harness."""
 
+from .gt import add_noise_sequence, gt_measures, sequence_psnr  # noqa: F401
 from .sequence import (  # noqa: F401
     FlowConfig,
     NLKalmanDenoiser,

@@ -208,30 +208,42 @@ def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
 class NLKalmanDenoiser(nn.Module):
     """The nlkalman-seq slice as a module: ``forward(noisy) -> (flt1, flt2, smo1)``.
 
-    Holds the three ``NLKParams``, the ``FlowConfig`` and, as registered
-    buffers, the numpy-built constants of its frame size: the DCT bases,
-    the Gaussian window, and the presmoothing blur and pyramid zoom
-    matrices. Move it with ``.to(device)``; inputs must lie on the same
-    device. No randomness, no autograd.
+    Holds the three ``NLKParams``, the ``FlowConfig`` (and the smoother's,
+    when it differs) and, as registered buffers, the numpy-built constants
+    of its frame size: the DCT bases, the Gaussian window, and the
+    presmoothing blur and pyramid zoom matrices. The buffers are built on
+    ``device``, the card unless the caller asks for the CPU; a card that
+    is not there raises. Inputs must lie on the module's device.
+    ``smoothing=False`` returns smo1 as None. No randomness, no autograd.
     """
 
     def __init__(self, sigma: float, height: int, width: int,
                  flow_cfg: FlowConfig = FlowConfig(),
                  p1: NLKParams | None = None, p2: NLKParams | None = None,
-                 ps: NLKParams | None = None, engine: str = "auto"):
+                 ps: NLKParams | None = None, engine: str = "auto",
+                 device="cuda", smooth_flow_cfg: FlowConfig | None = None,
+                 smoothing: bool = True):
         super().__init__()
         self.sigma = float(sigma)
         self.height, self.width = height, width
         self.flow_cfg = flow_cfg
+        self.smooth_flow_cfg = smooth_flow_cfg
+        self.smoothing = smoothing
         self.p1 = p1 or default_params(sigma, FilterMode.FLT1)
         self.p2 = p2 or default_params(sigma, FilterMode.FLT2)
         self.ps = ps or default_params(sigma, FilterMode.SMO1)
         check_engine(engine)
         self.engine = engine
-        consts = flow_bases(height, width, flow_cfg.nscales, flow_cfg.zfactor)
+        device = torch.device(device)
+        if device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("NLKalmanDenoiser: no CUDA device; pass "
+                               "device='cpu' to run on the CPU")
+        consts = {}
+        for cfg in (flow_cfg, smooth_flow_cfg or flow_cfg):
+            consts.update(flow_bases(height, width, cfg.nscales, cfg.zfactor))
         for psz in {self.p1.patch_sz, self.p2.patch_sz, self.ps.patch_sz}:
             consts.update(nlk_bases(psz))
-        for name, t in make_bases(consts).items():
+        for name, t in make_bases(consts, device).items():
             self.register_buffer(name, t)
 
     @torch.no_grad()
@@ -246,4 +258,6 @@ class NLKalmanDenoiser(nn.Module):
             raise ValueError(f"input on {noisy.device}, module on {dev}")
         return denoise_sequence(noisy.to(torch.float32).contiguous(),
                                 self.sigma, self.p1, self.p2, self.ps,
-                                self.flow_cfg, engine=self.engine, bases=bases)
+                                self.flow_cfg, smoothing=self.smoothing,
+                                smooth_flow_cfg=self.smooth_flow_cfg,
+                                engine=self.engine, bases=bases)

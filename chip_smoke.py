@@ -7,20 +7,32 @@ arguments, one GPU). Phases, each reported on its own line:
 1. device: fails unless CUDA is available; prints the card's name and
    power limit (nvidia-smi) and turns TF32 off for matmuls and convs;
 2. build: compiles the hand-written kernels (K1 NLK pass, K2 TV-L1
-   level, K4 bicubic warp) from ``bwd_nlkalman_tpu_torch/csrc`` into
+   level, K3 TV-L1 tiled block, K4 bicubic warp, P streaming-rate probe)
+   from ``bwd_nlkalman_tpu_torch/csrc``, one nvcc per source, into
    ``build/torch_kernels/`` and prints the seconds it took;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the JAX suite's cases and at the slice's shapes, with the tolerance
-   stated beside it; then each kernel's time against its plain version's;
-4. slice: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
-   with warm-started flow; outputs must be finite and denoise, and every
-   kernel must have launched during that run;
-5. slice against plain: at 128x160, 3 frames, kernels and plain versions
+   the JAX suite's cases and at the slices' shapes, with the tolerance
+   stated beside it; then each kernel's time against its plain version's
+   and the least time the card could take for the same work (its bound);
+4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
+   with warm-started half-resolution flow; outputs must be finite and
+   denoise, and K1, K2 and K4 must have launched during that run;
+5. slice 2: ``NLKalmanDenoiser`` with full-resolution flow (fscale=0) on
+   3 frames of 1080p gray; the 1080x1920 flow level runs K3, so K1, K2,
+   K3 and K4 must all have launched;
+6. ``python -m bwd_nlkalman_tpu_torch.cli.tvl1flow`` (run in this
+   process) on one 1080p PNG pair at its default fscale=0: the .flo must
+   read back finite and K3 must have launched;
+7. the probe's entry point (``main`` of
+   ``bwd_nlkalman_tpu_torch.tools.vpu_probe``, what ``python -m`` runs):
+   P's FMA rates against the published peaks;
+8. slice against plain: at 128x160, 3 frames, kernels and plain versions
    must give flt2 and smo1 PSNR within 0.05 dB of each other.
 
-The second-to-last line is a JSON object with one entry per kernel; the
-last line is ``{"ok": true, "device": {...}}``. Any failure raises and
-the script exits non-zero without that line.
+Every launch counter is set to 0 just before each of the paths 4-7 and
+read just after. The second-to-last line is a JSON object with one entry
+per kernel; the last line is ``{"ok": true, "device": {...}}``. Any
+failure raises and the script exits non-zero without that line.
 """
 
 from __future__ import annotations
@@ -41,7 +53,18 @@ K1_FULL_SHARE = 5e-5    # share of 1080p pixels beyond rtol 1e-3 / atol 5e-2 (1.
 K1_FULL_MEAN = 2e-4     # mean abs error of a 1080p pass (3.0e-5 measured)
 K2_LEVEL_MAX = 1e-2     # 540x960 level, max abs error (1.9e-3 measured)
 K2_LEVEL_EPE = 1e-4     # 540x960 level, mean end-point error (4.6e-6 measured)
+K3_LEVEL_MAX = 1e-2     # 1080x1920 level, max abs error (2.4e-3 measured)
+K3_LEVEL_EPE = 1e-4     # 1080x1920 level, mean end-point error (1.2e-5 measured)
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# the card's published peaks (NVIDIA H100 SXM data sheet; at 700 W)
+HBM_BYTES_S = 3.35e12   # device memory
+F32_FLOPS_S = 67e12     # float32 outside the tensor cores
+# FLOPs per pixel, counted from the kernels' arithmetic (an FMA is 2)
+K2_FLOPS_ITER = 49      # one K2 iteration (tvl1_level.cu iter_kernel)
+K2_FLOPS_WARP = 280     # one K2 warp stage: 3-channel bicubic + constants
+K3_FLOPS_ITER = 50      # one K3 iteration (tvl1_block.cu iter_kernel)
+K4_FLOPS_CH = 96        # one K4 channel: 5 Catmull-Rom cubics + coordinates
 
 
 def log(msg: str) -> None:
@@ -108,6 +131,45 @@ def assert_close(name, got, want, rtol, atol):
     torch.testing.assert_close(got, want, rtol=rtol, atol=atol, msg=lambda m: f"{name}: {m}")
 
 
+def bound(flops: float, nbytes: float, peak: float = F32_FLOPS_S):
+    """(ms, what binds): the least time the card could take for work of
+    ``flops`` operations moving ``nbytes`` bytes (each input read once,
+    each output written once)."""
+    t_ops, t_bytes = flops / peak, nbytes / HBM_BYTES_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def k1_work(cur, prev_valid, p, mode, has_prev, has_basic):
+    """(FLOPs, bytes) of one NLK pass on these inputs: the separable 8x8
+    DCT of each band, the distances of every site's candidates (within
+    the temporal radius where the site's previous patch is valid, as the
+    pass restricts them), the separable inverse DCT and the window fold.
+    The group statistics and gains, which depend on the selection, are
+    not counted, so this is a lower bound of the work."""
+    import torch
+    from bwd_nlkalman_tpu_torch.core.engine import patch_validity
+
+    h, w, c = cur.shape
+    hh, ww, f = h - 7, w - 7, 64 * c
+    rad = max(p.search_sz_x, p.search_sz_t) if mode == "filter" else p.search_sz_t
+    py = torch.arange(0, hh, 4, device=cur.device)
+    px = torch.arange(0, ww, 4, device=cur.device)
+
+    def cands(r):
+        span = lambda q, n: torch.clamp(q, max=r) + torch.clamp(n - 1 - q, max=r) + 1
+        return span(py, hh)[:, None] * span(px, ww)[None, :]
+
+    n_cand = cands(rad)
+    if mode == "filter" and has_prev:
+        n_cand = torch.where(patch_validity(prev_valid, 8)[::4, ::4],
+                             cands(p.search_sz_t), n_cand)
+    n_bands = 1 + int(has_basic) + int(has_prev)
+    flops = (n_bands + 1) * hh * ww * c * 2048 + int(n_cand.sum()) * f * 3 \
+        + h * w * c * 64 * 2
+    nbytes = h * w * (4 * c * (2 + int(has_basic) + int(has_prev)) + int(has_prev))
+    return flops, nbytes
+
+
 # ------------------------------------------------------------------ phases
 def phase_device():
     import torch
@@ -138,6 +200,7 @@ def phase_build():
 
 PARITY = {}     # kernel id -> largest abs error over its checked cases
 TIMES = {}      # kernel id -> (kernel ms, plain ms)
+BOUNDS = {}     # kernel id -> (least ms, "bytes" or "operations") of the timed call
 
 
 def _nlk_inputs(rng, h, w, ch, sigma=SIGMA):
@@ -219,10 +282,12 @@ def phase_k1(smi):
         if timed:
             k_ms, p_ms = timed_pair(lambda: dense_pass_cuda(*args),
                                     lambda: dense_pass_v2(*args), 5, 1)
+            b_ms, b_by = bound(*k1_work(cur, valid, args[5], mode, has_prev, has_basic))
             log(f"[3 time] K1 {mode} 1080p gray: kernel {k_ms:.2f} ms, plain "
-                f"{p_ms:.2f} ms ({smi})")
+                f"{p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}) ({smi})")
             if mode == "filter":
                 TIMES["K1"] = (k_ms, p_ms)
+                BOUNDS["K1"] = (b_ms, b_by)
         got, want = dense_pass_cuda(*args), dense_pass_v2(*args)
         diff = (got - want).abs()
         share = float(((diff > 5e-2 + 1e-3 * want.abs()).sum())) / want.numel()
@@ -239,7 +304,7 @@ def phase_k1(smi):
 def phase_k2(smi):
     import torch
     from bwd_nlkalman_tpu_torch.flow import tvl1
-    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_cuda
+    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS, tvl1_level_cuda
     from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
 
     rng = np.random.default_rng(7)
@@ -272,16 +337,91 @@ def phase_k2(smi):
     kw = dict(lambda_=0.25, nwarps=5, k_check=8, max_iters=300)
     k_ms, p_ms = timed_pair(lambda: tvl1_level_cuda(a, b, u0, **kw),
                             lambda: tvl1_level_plain(a, b, u0, **kw), 3, 1)
+    ITERATIONS.reset()
     got, want = tvl1_level_cuda(a, b, u0, **kw), tvl1_level_plain(a, b, u0, **kw)
     epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
     err = max_err(got, want)
+    npx = a.numel()
+    b_ms, b_by = bound(ITERATIONS.count * npx * K2_FLOPS_ITER + 5 * npx * K2_FLOPS_WARP,
+                       24 * npx)
+    BOUNDS["K2"] = (b_ms, b_by)
     log(f"[3 time] K2 level {a.shape[0]}x{a.shape[1]} nwarps=5: kernel "
-        f"{k_ms:.2f} ms, plain {p_ms:.2f} ms ({smi})")
+        f"{k_ms:.2f} ms, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}; "
+        f"{ITERATIONS.count} iterations) ({smi})")
     log(f"[3 parity] K2 level {a.shape[0]}x{a.shape[1]} nwarps=5: max abs err "
         f"{err:.3e} (<= {K2_LEVEL_MAX:g}), mean EPE {epe:.2e} px (<= {K2_LEVEL_EPE:g})")
     check(err <= K2_LEVEL_MAX, f"K2 540x960 level max abs err {err}")
     check(epe <= K2_LEVEL_EPE, f"K2 540x960 level mean EPE {epe} px")
     TIMES["K2"] = (k_ms, p_ms)
+
+
+def phase_k3(smi):
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
+    from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import LAUNCHES, tvl1_block_cuda
+
+    rng = np.random.default_rng(7)
+    h, w = 25, 41
+    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
+    i0 = torch.from_numpy(np.ascontiguousarray(base[4:4 + h, 4:4 + w])).cuda()
+    i1 = torch.from_numpy(np.ascontiguousarray(base[2:2 + h, 5:5 + w])).cuda()
+    u0 = i0.new_zeros((h, w, 2))
+    worst = 0.0
+    # the JAX suite's bars for its K2, at K3's block (two blocks per warp
+    # stage) and at one iteration
+    for k, nwarps, max_iters, atol in ((24, 2, 48, 2e-3), (1, 1, 1, 1e-5)):
+        tvl1_tiled.K_ITERS = k
+        kw = dict(nwarps=nwarps, max_iters=max_iters)
+        got = tvl1_tiled.tvl1_single_scale_tiled(i0, i1, u0, **kw)
+        want = tvl1_tiled.tvl1_level_tiled_plain(i0, i1, u0, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        worst = max(worst, err)
+        log(f"[3 parity] K3 {h}x{w} k_iters={k} nwarps={nwarps} "
+            f"max_iters={max_iters}: max abs err {err:.3e} (atol {atol:g})")
+        assert_close("K3", got, want, rtol=0.0, atol=atol)
+    tvl1_tiled.K_ITERS = 24
+    PARITY["K3"] = worst
+
+    # the slice's 1080x1920 level: a full-resolution pair from make_clip
+    _, noisy = make_clip(*FULL, 2, SIGMA)
+    nz = torch.from_numpy(noisy).cuda()
+    a, b = tvl1._prep_pair(nz[1, ..., 0], nz[0, ..., 0])
+    u0 = a.new_zeros(a.shape + (2,))
+    kw = dict(lambda_=0.25, nwarps=5, max_iters=300)
+    lk_ms, lp_ms = timed_pair(lambda: tvl1_tiled.tvl1_single_scale_tiled(a, b, u0, **kw),
+                              lambda: tvl1_tiled.tvl1_level_tiled_plain(a, b, u0, **kw),
+                              2, 1)
+    LAUNCHES.reset()
+    got = tvl1_tiled.tvl1_single_scale_tiled(a, b, u0, **kw)
+    want = tvl1_tiled.tvl1_level_tiled_plain(a, b, u0, **kw)
+    epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+    err = max_err(got, want)
+    log(f"[3 time] K3 level {a.shape[0]}x{a.shape[1]} nwarps=5 (K4 warps, K3 "
+        f"blocks, host syncs): kernel {lk_ms:.2f} ms ({LAUNCHES.count} blocks of 24 "
+        f"iterations), plain {lp_ms:.2f} ms ({smi})")
+    log(f"[3 parity] K3 level {a.shape[0]}x{a.shape[1]} nwarps=5: max abs err "
+        f"{err:.3e} (<= {K3_LEVEL_MAX:g}), mean EPE {epe:.2e} px (<= {K3_LEVEL_EPE:g})")
+    check(err <= K3_LEVEL_MAX, f"K3 1080x1920 level max abs err {err}")
+    check(epe <= K3_LEVEL_EPE, f"K3 1080x1920 level mean EPE {epe} px")
+
+    # one block at that level, from its first warp stage's constants
+    i1x, i1y = tvl1_tiled.centered_gradient(b)
+    wrp = tvl1_tiled.warp_bicubic_zero_multi(torch.stack([b, i1x, i1y], -1),
+                                             u0[..., 0], u0[..., 1])
+    ix, iy = wrp[..., 1], wrp[..., 2]
+    consts = torch.stack([ix, iy, ix * ix + iy * iy, wrp[..., 0] - a]).contiguous()
+    state = a.new_zeros((6,) + a.shape)
+    k_ms, p_ms = timed_pair(lambda: tvl1_block_cuda(state, consts, 24),
+                            lambda: tvl1_tiled.tvl1_block_plain(state, consts, 24),
+                            10, 2)
+    npx = a.numel()
+    BOUNDS["K3"] = bound(24 * npx * K3_FLOPS_ITER + 6 * npx, (6 + 4 + 6) * 4 * npx)
+    TIMES["K3"] = (k_ms, p_ms)
+    log(f"[3 time] K3 block of 24 iterations at {a.shape[0]}x{a.shape[1]}: kernel {k_ms:.3f} ms "
+        f"({1e3 * k_ms / 24:.1f} us per iteration), plain {p_ms:.3f} ms, bound "
+        f"{BOUNDS['K3'][0]:.4f} ms ({BOUNDS['K3'][1]}) ({smi})")
 
 
 def _warp_flow(rng, h, w):
@@ -323,7 +463,9 @@ def phase_k4(smi):
     flow = torch.from_numpy(_warp_flow(rng, h, w)).cuda()
     k_ms, p_ms = timed_pair(lambda: bicubic_warp_cuda(im, flow),
                             lambda: bicubic_warp_plain(im, flow), 20, 5)
-    log(f"[3 time] K4 1080p C=2: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms ({smi})")
+    BOUNDS["K4"] = bound(h * w * 2 * K4_FLOPS_CH, h * w * (4 * 2 + 8 + 4 * 2 + 1))
+    log(f"[3 time] K4 1080p C=2: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
+        f"{BOUNDS['K4'][0]:.4f} ms ({BOUNDS['K4'][1]}) ({smi})")
     TIMES["K4"] = (k_ms, p_ms)
     # the slice's warps: C=2 (the filter's flt1|flt2) and C=1 with an
     # occlusion mask (the smoother's)
@@ -339,9 +481,52 @@ def phase_k4(smi):
         assert_close("K4 1080p", got, want, rtol=0.0, atol=1e-3)
 
 
+def phase_p(smi):
+    import torch
+    from bwd_nlkalman_tpu_torch.tools import vpu_probe as vp
+
+    worst = 0.0
+    for h, w in vp.SIZES.values():
+        a = vp.probe_input(h, w, "cuda")
+        for name, (nchains, op, dtype) in vp.VARIANTS.items():
+            got = vp.probe_cuda(a, nchains, op, dtype, k=8)
+            want = vp.probe_plain(a, nchains, op, dtype, k=8)
+            rtol = 1e-6 if dtype == torch.float32 else 2e-2
+            rel = float(((got - want).abs() / want.abs()).max())
+            worst = max(worst, max_err(got, want))
+            log(f"[3 parity] P {name} {h}x{w} K=8: max rel err {rel:.2e} (rtol {rtol:g})")
+            assert_close("P", got, want, rtol=rtol, atol=0.0)
+    PARITY["P"] = worst
+    h, w = vp.SIZES[""]
+    a = vp.probe_input(h, w, "cuda")
+    k_ms, p_ms = timed_pair(lambda: vp.probe_cuda(a, 8, "fma", torch.float32),
+                            lambda: vp.probe_plain(a, 8, "fma", torch.float32), 20, 1)
+    BOUNDS["P"] = bound(vp.flops(h, w, 8, "fma"), 8 * h * w)
+    TIMES["P"] = (k_ms, p_ms)
+    log(f"[3 time] P fma8 {h}x{w} K={vp.K} GRID={vp.GRID}: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.2f} ms, bound {BOUNDS['P'][0]:.4f} ms ({BOUNDS['P'][1]}) ({smi})")
+
+
+def reset_counters():
+    import bwd_nlkalman_tpu_torch as port
+
+    counters = port.kernel_counters()
+    for c in counters.values():
+        c.reset()
+    return counters
+
+
+def read_counters(counters, path, must):
+    """The launch counts after a path's run; fails unless every kernel in
+    ``must`` launched."""
+    launches = {k: c.count for k, c in counters.items()}
+    log(f"[{path}] launches during the run: {launches}")
+    check(all(launches[k] > 0 for k in must), f"{path}: a kernel of {must} never launched")
+    return launches
+
+
 def phase_slice(smi):
     import torch
-    import bwd_nlkalman_tpu_torch as port
     from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
 
     t, (h, w) = 4, FULL
@@ -351,14 +536,12 @@ def phase_slice(smi):
     model = NLKalmanDenoiser(SIGMA, h, w, FlowConfig(warm_start=True, warm_nwarps=3)).cuda()
     model(noisy[:2])            # warm-up: allocator, cuBLAS handles
     torch.cuda.synchronize()
-    counters = port.kernel_counters()
-    for c in counters.values():
-        c.reset()
+    counters = reset_counters()
     t0 = time.perf_counter()
     flt1, flt2, smo1 = model(noisy)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {k: c.count for k, c in counters.items()}
+    launches = read_counters(counters, "4 slice", ("K1", "K2", "K4"))
     for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
         check(x.shape == noisy.shape, f"{name} shape {tuple(x.shape)}")
         check(bool(torch.isfinite(x).all()), f"{name} has non-finite values")
@@ -366,12 +549,79 @@ def phase_slice(smi):
     log(f"[4 slice] 1080p gray T={t} sigma={SIGMA:g} warm flow: PSNR noisy "
         f"{p_n:.3f} flt1 {p_1:.3f} flt2 {p_2:.3f} smo1 {p_s:.3f} dB")
     log(f"[4 slice] {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
-    log(f"[4 slice] launches during the run: {launches}")
     check(p_s >= p_n + 6.0, "smo1 does not denoise by 6 dB")
     check(p_s >= p_2 - 0.1, "smo1 is worse than flt2 by more than 0.1 dB")
-    check(all(n > 0 for n in launches.values()), f"a kernel never launched: {launches}")
     check(launches["K1"] >= 3 * t - 1, f"K1 ran {launches['K1']} passes")
-    return launches, t / secs
+    return launches
+
+
+def phase_slice_fullres(smi):
+    import torch
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
+
+    t, (h, w) = 3, FULL
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+    model = NLKalmanDenoiser(SIGMA, h, w, FlowConfig(fscale=0))
+    model(noisy[:2])            # warm-up
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    t0 = time.perf_counter()
+    flt1, flt2, smo1 = model(noisy)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters(counters, "5 slice fscale=0", ("K1", "K2", "K3", "K4"))
+    for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
+        check(x.shape == noisy.shape, f"{name} shape {tuple(x.shape)}")
+        check(bool(torch.isfinite(x).all()), f"{name} has non-finite values")
+    p_n, p_1, p_2, p_s = (psnr(clean, x) for x in (noisy, flt1, flt2, smo1))
+    log(f"[5 slice fscale=0] 1080p gray T={t} sigma={SIGMA:g} cold full-resolution "
+        f"flow: PSNR noisy {p_n:.3f} flt1 {p_1:.3f} flt2 {p_2:.3f} smo1 {p_s:.3f} dB")
+    log(f"[5 slice fscale=0] {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
+    check(p_s >= p_n + 6.0, "fscale=0 smo1 does not denoise by 6 dB")
+    check(launches["K1"] >= 3 * t - 1, f"K1 ran {launches['K1']} passes")
+    return launches
+
+
+def phase_cli_tvl1flow(smi):
+    import runpy
+    import tempfile
+
+    from bwd_nlkalman_tpu_torch.io import read_flo, write_png
+
+    _, noisy = make_clip(*FULL, 2, SIGMA)
+    with tempfile.TemporaryDirectory() as d:
+        i0, i1, out = (os.path.join(d, n) for n in ("i0.png", "i1.png", "u.flo"))
+        write_png(i0, noisy[1])
+        write_png(i1, noisy[0])
+        argv = sys.argv
+        sys.argv = ["tvl1flow", i0, i1, out]
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        try:
+            runpy.run_module("bwd_nlkalman_tpu_torch.cli.tvl1flow", run_name="__main__")
+        except SystemExit as e:
+            check(e.code == 0, f"tvl1flow exited {e.code}")
+        finally:
+            sys.argv = argv
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, "6 tvl1flow", ("K2", "K3", "K4"))
+        u = read_flo(out)
+    check(u.shape == FULL + (2,), f"tvl1flow wrote a {u.shape} flow")
+    check(bool(np.isfinite(u).all()), "tvl1flow wrote non-finite flow")
+    log(f"[6 tvl1flow] 1080p PNG pair, fscale=0: {secs:.3f} s with io, mean flow "
+        f"({u[..., 0].mean():.3f}, {u[..., 1].mean():.3f}) px ({smi})")
+    return launches
+
+
+def phase_probe():
+    """The probe's entry point (``main``, what ``python -m`` runs)."""
+    from bwd_nlkalman_tpu_torch.tools import vpu_probe
+
+    counters = reset_counters()
+    vpu_probe.main()
+    return read_counters(counters, "7 probe", ("P",))
 
 
 def phase_slice_vs_plain():
@@ -389,7 +639,7 @@ def phase_slice_vs_plain():
             res[engine] = (psnr(clean, flt2), psnr(clean, smo1))
         d2 = abs(res["auto"][0] - res["plain"][0])
         ds = abs(res["auto"][1] - res["plain"][1])
-        log(f"[5 slice vs plain] 128x160 T=3 warm={cfg.warm_start}: kernels "
+        log(f"[8 slice vs plain] 128x160 T=3 warm={cfg.warm_start}: kernels "
             f"flt2/smo1 {res['auto'][0]:.4f}/{res['auto'][1]:.4f} dB, plain "
             f"{res['plain'][0]:.4f}/{res['plain'][1]:.4f} dB, |d| {d2:.4f}/{ds:.4f} (<= 0.05)")
         check(d2 <= 0.05 and ds <= 0.05, "kernels and plain versions disagree")
@@ -400,8 +650,12 @@ KERNELS = {
            "bwd_nlkalman_tpu/core/engine_pallas.py:128"),
     "K2": ("tvl1_level", "bwd_nlkalman_tpu_torch/csrc/tvl1_level.cu",
            "bwd_nlkalman_tpu/flow/tvl1_fused.py:65"),
+    "K3": ("tvl1_block", "bwd_nlkalman_tpu_torch/csrc/tvl1_block.cu",
+           "bwd_nlkalman_tpu/flow/tvl1_pallas.py:52"),
     "K4": ("bicubic_warp", "bwd_nlkalman_tpu_torch/csrc/warp.cu",
            "bwd_nlkalman_tpu/ops/warp_pallas.py:59"),
+    "P": ("vpu_probe", "bwd_nlkalman_tpu_torch/csrc/probe.cu",
+          "tools/vpu_probe.py:39"),
 }
 
 
@@ -411,20 +665,32 @@ def main() -> int:
 
     sys.path.insert(0, HERE)
     phase_build()
-    for phase in (phase_k1, phase_k2, phase_k4):
-        phase(smi)
+
+    def settle():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
-    launches, fps = phase_slice(smi)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
+
+    for phase in (phase_k1, phase_k2, phase_k3, phase_k4, phase_p):
+        phase(smi)
+        settle()
+    phase_slice(smi)
+    settle()
+    launches = phase_slice_fullres(smi)
+    settle()
+    phase_cli_tvl1flow(smi)
+    settle()
+    launches["P"] = phase_probe()["P"]
+    settle()
     phase_slice_vs_plain()
     torch.cuda.synchronize()
+    # no single PyTorch call computes any of these functions, so there is
+    # no library time (grid_sample's bicubic is another cubic and border)
     log(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
-         "max_abs_err": PARITY[k], "ms": TIMES[k][0], "plain_ms": TIMES[k][1]}
-        for k in ("K1", "K2", "K4")]}))
+         "max_abs_err": PARITY[k], "ms": TIMES[k][0], "plain_ms": TIMES[k][1],
+         "bound_ms": BOUNDS[k][0], "bound_by": BOUNDS[k][1], "library_ms": None}
+        for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

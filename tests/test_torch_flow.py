@@ -9,6 +9,8 @@
   XLA path checks convergence every 10 iterations, K2's semantics every
   8 on fine levels and 24 on coarse ones), so the iterates are not the
   same and the bar is a mean EPE of 0.05 px.
+- The dispatch: a level beyond K2's plan takes the tiled solver (K3's
+  path); tests/test_torch_fullres.py holds that solver to JAX.
 """
 
 import numpy as np
@@ -18,7 +20,7 @@ import torch
 import jax.numpy as jnp
 
 from bwd_nlkalman_tpu.flow import tvl1 as j_tvl1
-from bwd_nlkalman_tpu_torch.flow import tvl1
+from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_fused, tvl1_tiled
 from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
 
 torch.set_num_threads(1)
@@ -93,9 +95,24 @@ def test_warm_flow_and_gate_epe(rng, stale):
     assert _epe(got_fs, ref_fs) <= 0.05
 
 
-def test_level_beyond_plan_raises():
-    big = torch.zeros(1).expand(4000, 4000)
-    with pytest.raises(NotImplementedError, match="K3"):
-        tvl1._solve_level(big, big, torch.zeros(1).expand(4000, 4000, 2), tau=0.25,
-                          lambda_=0.15, theta=0.3, nwarps=1, epsilon=0.01,
-                          max_iters=1)
+def test_level_beyond_plan_raises(rng, monkeypatch):
+    """A level beyond K2's plan raises nothing any more: it reaches the
+    tiled solver (K3's path), as the JAX package dispatches. With the plan's
+    budget patched down to a 48x64 level, only the finest level of a
+    48x64 pyramid goes there; tests/test_torch_fullres.py holds the result
+    to JAX."""
+    budget = tvl1_fused._plan(48, 64)[2]
+    monkeypatch.setattr(tvl1, "fused_level_supported",
+                        lambda h, w: tvl1_fused.fused_level_supported(h, w, budget))
+    tiled = []
+
+    def record(a, *args, **kw):
+        tiled.append(tuple(a.shape))
+        return tvl1_tiled.tvl1_single_scale_tiled(a, *args, **kw)
+
+    monkeypatch.setattr(tvl1, "tvl1_single_scale_tiled", record)
+    i0, i1 = _pair(rng)
+    got = tvl1.tvl1_flow(torch.from_numpy(i0), torch.from_numpy(i1), fscale=0,
+                         lambda_=0.25)
+    assert tiled == [(48, 64)]
+    assert got.shape == (48, 64, 2) and torch.isfinite(got).all()

@@ -13,11 +13,14 @@ import torch
 
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
 from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+from bwd_nlkalman_tpu_torch.flow import tvl1_tiled
+from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import tvl1_block_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
 from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp_plain
 from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda
 from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+from bwd_nlkalman_tpu_torch.tools import vpu_probe
 
 pytestmark = pytest.mark.cuda
 
@@ -75,16 +78,61 @@ def test_nlk_kernel_matches_plain(dev, mode, fm, has_prev, has_basic):
                                rtol=1e-3, atol=5e-2)
 
 
+def _level_pair(dev, h=25, w=41):
+    rng = np.random.default_rng(7)
+    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
+    return _t(base[4:4 + h, 4:4 + w], dev), _t(base[2:2 + h, 5:5 + w], dev)
+
+
 @pytest.mark.parametrize("nwarps,k_check,max_iters,atol",
                          [(2, 8, 32, 2e-3), (1, 1, 1, 1e-5)])
 def test_tvl1_level_kernel_matches_plain(dev, nwarps, k_check, max_iters, atol):
-    rng = np.random.default_rng(7)
     h, w = 25, 41
-    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
-    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
-    i0, i1 = _t(base[4:4 + h, 4:4 + w], dev), _t(base[2:2 + h, 5:5 + w], dev)
+    i0, i1 = _level_pair(dev, h, w)
     u0 = torch.zeros((h, w, 2), device=dev)
     kw = dict(nwarps=nwarps, k_check=k_check, max_iters=max_iters)
     torch.testing.assert_close(tvl1_level_cuda(i0, i1, u0, **kw),
                                tvl1_level_plain(i0, i1, u0, **kw),
                                rtol=0.0, atol=atol)
+
+
+@pytest.mark.parametrize("h,w", [(25, 41), (270, 480)])
+@pytest.mark.parametrize("k,nwarps,max_iters,atol", [(24, 2, 48, 2e-3), (1, 1, 1, 1e-5)])
+def test_tvl1_tiled_kernel_matches_plain(dev, monkeypatch, h, w, k, nwarps,
+                                         max_iters, atol):
+    """K3 (with K4 warps) against its plain version over whole levels, with
+    the bars of the JAX suite's K2: two blocks per warp stage, and one
+    iteration."""
+    monkeypatch.setattr(tvl1_tiled, "K_ITERS", k)
+    i0, i1 = _level_pair(dev, h, w)
+    u0 = torch.zeros((h, w, 2), device=dev)
+    kw = dict(nwarps=nwarps, max_iters=max_iters)
+    torch.testing.assert_close(tvl1_tiled.tvl1_single_scale_tiled(i0, i1, u0, **kw),
+                               tvl1_tiled.tvl1_level_tiled_plain(i0, i1, u0, **kw),
+                               rtol=0.0, atol=atol)
+
+
+def test_tvl1_block_kernel_error_matches_plain(dev):
+    """One block's state and mean squared update, from a mid-level state."""
+    rng = np.random.default_rng(11)
+    h, w = 270, 480
+    state = _t(rng.normal(0, 0.5, (6, h, w)).astype(np.float32), dev)
+    state[2:, :, -1] = 0.0   # dual planes are zero at the last column / row
+    state[2:, -1, :] = 0.0
+    consts = _t(rng.normal(0, 1, (4, h, w)).astype(np.float32), dev)
+    consts[2] = consts[0] ** 2 + consts[1] ** 2
+    got, got_err = tvl1_block_cuda(state, consts, 24)
+    want, want_err = tvl1_tiled.tvl1_block_plain(state, consts, 24)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=2e-3)
+    torch.testing.assert_close(got_err, want_err, rtol=1e-3, atol=0.0)
+
+
+@pytest.mark.parametrize("variant", list(vpu_probe.VARIANTS))
+def test_probe_kernel_matches_plain(dev, variant):
+    nchains, op, dtype = vpu_probe.VARIANTS[variant]
+    a = vpu_probe.probe_input(64, 512, dev)
+    got = vpu_probe.probe_cuda(a, nchains, op, dtype, k=8)
+    want = vpu_probe.probe_plain(a, nchains, op, dtype, k=8)
+    rtol = 1e-6 if dtype == torch.float32 else 2e-2
+    torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)

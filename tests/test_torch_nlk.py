@@ -15,9 +15,10 @@ import jax.numpy as jnp
 
 from bwd_nlkalman_tpu.core import nlkalman as j_nlk
 from bwd_nlkalman_tpu.core.engine import dense_pass_v2 as j_dense_pass_v2
+from bwd_nlkalman_tpu.params import FilterMode, NLKParams, default_params
+from bwd_nlkalman_tpu_torch.convert import params_from_jax
 from bwd_nlkalman_tpu_torch.core import nlkalman_filter_frame, nlkalman_smooth_frame
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
-from bwd_nlkalman_tpu_torch.params import FilterMode, NLKParams, default_params
 
 torch.set_num_threads(1)
 
@@ -67,7 +68,8 @@ def test_plain_pass_matches_dense_pass_v2(rng, mode, has_prev, has_basic, prms, 
         jnp.asarray(basic), sigma, prms, mode, has_prev, has_basic))
     got = dense_pass_v2(torch.from_numpy(cur), torch.from_numpy(prev),
                         torch.from_numpy(valid), torch.from_numpy(basic),
-                        sigma, prms, mode, has_prev, has_basic).numpy()
+                        sigma, params_from_jax(prms), mode, has_prev,
+                        has_basic).numpy()
     np.testing.assert_allclose(got, want, rtol=1e-3, atol=5e-2)
 
 
@@ -91,7 +93,8 @@ def test_filter_frame_default_params(rng, with_prev, with_basic, mode):
         *[None if a is None else jnp.asarray(a) for a in args], sigma, prms,
         engine="v2"))
     got = nlkalman_filter_frame(
-        *[None if a is None else torch.from_numpy(a) for a in args], sigma, prms)
+        *[None if a is None else torch.from_numpy(a) for a in args], sigma,
+        params_from_jax(prms))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=5e-2)
 
 
@@ -105,5 +108,6 @@ def test_smooth_frame_default_params(rng, with_prev):
         *[None if a is None else jnp.asarray(a) for a in args], sigma, prms,
         engine="v2"))
     got = nlkalman_smooth_frame(
-        *[None if a is None else torch.from_numpy(a) for a in args], sigma, prms)
+        *[None if a is None else torch.from_numpy(a) for a in args], sigma,
+        params_from_jax(prms))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=5e-2)

@@ -13,6 +13,7 @@ like. The shipped granularity is held to its own, looser bar against the
 same JAX run, so a change to the stopping rule cannot drift unseen.
 """
 
+import dataclasses
 import functools
 import os
 import subprocess
@@ -24,6 +25,7 @@ import torch
 
 import jax.numpy as jnp
 
+from bwd_nlkalman_tpu import params as j_params
 from bwd_nlkalman_tpu.flow.tvl1 import luma as j_luma
 from bwd_nlkalman_tpu.pipeline import sequence as j_seq
 from bwd_nlkalman_tpu_torch import convert, kernel_counters
@@ -74,7 +76,8 @@ def _jax_psnr(warm):
 
 def _port_run(warm):
     clean, noisy = _clip()
-    model = seq.NLKalmanDenoiser(SIGMA, 48, 64, convert.flow_config_from_jax(_j_cfg(warm)))
+    model = seq.NLKalmanDenoiser(SIGMA, 48, 64, convert.flow_config_from_jax(_j_cfg(warm)),
+                                 device="cpu")
     flt1, flt2, smo1 = model(torch.from_numpy(noisy))
     for out in (flt1, flt2, smo1):
         assert out.shape == noisy.shape and torch.isfinite(out).all()
@@ -106,8 +109,8 @@ def test_frame_pair_steps_from_jax_carry(xla_granularity):
     """One warm step and one cold frame-pair step, each started from the
     exact JAX carry through convert.carry_from_numpy."""
     clean, noisy = _clip(t=3)
-    p1 = default_params(SIGMA, FilterMode.FLT1)
-    p2 = default_params(SIGMA, FilterMode.FLT2)
+    p1 = j_params.default_params(SIGMA, j_params.FilterMode.FLT1)
+    p2 = j_params.default_params(SIGMA, j_params.FilterMode.FLT2)
     j_cfg = j_seq.FlowConfig(warm_start=True, warm_nwarps=3)
     nj = jnp.asarray(noisy)
     f11, f21 = j_seq.filter_frame_pair(nj[0], None, None, SIGMA, p1, p2, j_cfg)
@@ -124,9 +127,10 @@ def test_frame_pair_steps_from_jax_carry(xla_granularity):
     carry = convert.carry_from_numpy(np.asarray(f11), np.asarray(f21),
                                      np.asarray(u_fs), "cpu")
     frame = torch.from_numpy(noisy[2])
-    _, (_, w2) = seq.filter_step_warm(frame, carry, SIGMA, p1, p2,
+    q1, q2 = convert.params_from_jax(p1), convert.params_from_jax(p2)
+    _, (_, w2) = seq.filter_step_warm(frame, carry, SIGMA, q1, q2,
                                       convert.flow_config_from_jax(j_cfg))
-    _, c2 = seq.filter_frame_pair(frame, carry[0], carry[1], SIGMA, p1, p2,
+    _, c2 = seq.filter_frame_pair(frame, carry[0], carry[1], SIGMA, q1, q2,
                                   seq.FlowConfig())
     for got, want in ((w2, j_w2), (c2, j_c2)):
         assert abs(_psnr(clean[2], got) - _psnr(clean[2], want)) <= 0.05
@@ -137,7 +141,8 @@ def test_frame_pair_steps_from_jax_carry(xla_granularity):
 def test_unknown_engine_raises(call):
     x = torch.zeros((16, 16, 1))
     run = {
-        "module": lambda: seq.NLKalmanDenoiser(SIGMA, 16, 16, engine="pallas"),
+        "module": lambda: seq.NLKalmanDenoiser(SIGMA, 16, 16, engine="pallas",
+                                               device="cpu"),
         "pass": lambda: dense_pass(x, x, x[..., 0] > 0, x, SIGMA,
                                    default_params(SIGMA, FilterMode.FLT1), "filter",
                                    False, False, engine="pallas"),
@@ -150,23 +155,64 @@ def test_unknown_engine_raises(call):
         run()
 
 
-def test_port_never_imports_jax():
+def test_port_never_imports_jax(tmp_path):
+    """A CPU run of the module and of both CLIs loads neither JAX nor any
+    module of the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "import bwd_nlkalman_tpu_torch as P\n"
         "from bwd_nlkalman_tpu_torch import convert\n"
+        "from bwd_nlkalman_tpu_torch.cli import nlkalman_seq, tvl1flow\n"
+        "from bwd_nlkalman_tpu_torch.io import write_png\n"
+        "from bwd_nlkalman_tpu_torch.tools import vpu_probe\n"
         "x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 24, 32, 1))"
         ".astype(np.float32))\n"
-        "out = P.NLKalmanDenoiser(20.0, 24, 32)(x)\n"
+        "out = P.NLKalmanDenoiser(20.0, 24, 32, device='cpu')(x)\n"
         "assert all(torch.isfinite(o).all() for o in out)\n"
-        "assert not [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "d = sys.argv[1]\n"
+        "for i in range(2):\n"
+        "    write_png(f'{d}/f-{i}.png', x[i].numpy())\n"
+        "assert tvl1flow.main([f'{d}/f-0.png', f'{d}/f-1.png', f'{d}/u.flo',"
+        " '--device', 'cpu']) == 0\n"
+        "assert nlkalman_seq.main([f'{d}/f-%d.png', '0', '1', '20', f'{d}/out',"
+        " '--fscale', '0', '--device', 'cpu']) == 0\n"
+        "bad = [m for m in sys.modules if m in ('jax', 'bwd_nlkalman_tpu')"
+        " or m.startswith(('jax.', 'bwd_nlkalman_tpu.'))]\n"
+        "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, env=env, cwd=REPO, timeout=300)
+    res = subprocess.run([sys.executable, "-c", code, str(tmp_path)],
+                         capture_output=True, text=True, env=env, cwd=REPO,
+                         timeout=300)
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_denoiser_runs_on_the_card_by_default():
+    """Built without a device, the module asks for the card: on a machine
+    without one it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        model = seq.NLKalmanDenoiser(SIGMA, 16, 16)
+        assert {b.device.type for b in model.buffers()} == {"cuda"}
+    else:
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            seq.NLKalmanDenoiser(SIGMA, 16, 16)
+
+
+@pytest.mark.parametrize("mode", list(j_params.FilterMode))
+def test_params_from_jax_round_trips(mode):
+    """Each package builds its own NLKParams; params_from_jax carries a JAX
+    one across field by field, resolved or partly set."""
+    port_mode = FilterMode[mode.name]
+    jp = j_params.default_params(SIGMA, mode)
+    port = convert.params_from_jax(jp)
+    assert type(port) is not type(jp)
+    assert dataclasses.asdict(port) == dataclasses.asdict(jp)
+    assert port == default_params(SIGMA, port_mode)
+    base = j_params.NLKParams(patch_sz=8, npatches_t=7, beta_x=1.5)
+    assert convert.params_from_jax(j_params.default_params(SIGMA, mode, base)) \
+        == default_params(SIGMA, port_mode, convert.params_from_jax(base))
 
 
 def test_cpu_run_launches_no_kernel():
@@ -175,7 +221,8 @@ def test_cpu_run_launches_no_kernel():
     _, noisy = _clip(t=2, h=24, w=32)
     seq.denoise_sequence(torch.from_numpy(noisy), SIGMA,
                          flow_cfg=seq.FlowConfig(warm_start=True))
-    assert {k: c.count for k, c in kernel_counters().items()} == {"K1": 0, "K2": 0, "K4": 0}
+    assert {k: c.count for k, c in kernel_counters().items()} == {
+        "K1": 0, "K2": 0, "K3": 0, "K4": 0, "P": 0}
 
 
 def test_non_cpu_non_cuda_device_raises():
