@@ -1,0 +1,212 @@
+"""Time K1, the NL-Kalman pass kernel, at 1080p gray on one card, and
+compare two checkouts in turns.
+
+    python3 bwd_nlkalman_tpu_torch/tools/k1_bench.py [--against DIR]
+
+Each turn is a worker process that imports ``bwd_nlkalman_tpu_torch``
+from one checkout's root, builds that checkout's kernels and times K1's
+four 1080p gray passes at sigma=20 (flt1 on a first frame, flt1, flt2,
+smo1): the whole pass between CUDA events (mean of 10 after a
+warm-up), and each stage's device time (the DCT, site, aggregation and
+fold kernels) from torch.profiler. With
+``--against DIR`` (another checkout, for example the parent commit
+unpacked with ``git archive``) the turns run other, this, this, other,
+so both are timed on the same card. Every turn prints one JSON line with
+the card's name and power limit; the last line is the mean per tree.
+
+The timing and profiler helpers (:func:`cuda_ms`, :func:`stage_ms`,
+:func:`device_events`, :func:`kernel_ms`, :func:`busy_ms`) and the
+inputs (:func:`nlk_inputs`, :func:`pass_args`) serve ``chip_smoke.py``
+too. Needs a CUDA device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+ROOT = os.path.dirname(os.path.dirname(HERE))
+SIGMA = 20.0
+FULL = (1080, 1920)
+REPS = 10
+STAGES = ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel")
+
+
+def device_events(prof):
+    """(kernel name, start us, end us) of every device activity of a
+    ``torch.profiler`` run; empty where the profiler saw no device time."""
+    import torch
+
+    cuda = torch.autograd.DeviceType.CUDA
+    return [(e.name, e.time_range.start, e.time_range.end) for e in prof.events()
+            if getattr(e, "device_type", None) == cuda]
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without return type, namespaces of its own file
+    and arguments: ``site_kernel<2>``."""
+    name = name.replace("(anonymous namespace)::", "")
+    name = name[5:] if name.startswith("void ") else name
+    return name.split("(")[0].strip()[:80]
+
+
+def kernel_ms(events, key=short_name) -> dict:
+    """Device milliseconds summed by ``key(kernel name)``."""
+    out: dict = {}
+    for name, t0, t1 in events:
+        k = key(name)
+        out[k] = out.get(k, 0.0) + (t1 - t0) / 1e3
+    return out
+
+
+def busy_ms(events) -> float:
+    """Milliseconds in which at least one device activity ran (the union
+    of their intervals)."""
+    total, end = 0.0, None
+    for t0, t1 in sorted((e[1], e[2]) for e in events):
+        if end is None or t0 > end:
+            total += t1 - t0
+            end = t1
+        elif t1 > end:
+            total += t1 - end
+            end = t1
+    return total / 1e3
+
+
+def card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]
+
+
+def nlk_inputs(rng, h, w, ch, sigma=SIGMA):
+    """A smooth scene with noise, a previous frame with an invalid patch
+    and border, and a basic estimate (the inputs of chip_smoke.py's K1
+    parity cases): (cur, prev, valid, basic) as numpy arrays."""
+    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
+    clean = (100 + 60 * np.sin(0.1 * xx) + 50 * np.cos(0.13 * yy))[..., None]
+    clean = np.repeat(clean, ch, -1).astype(np.float32)
+    cur = clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)
+    prev = clean + 2 * rng.standard_normal(clean.shape).astype(np.float32)
+    valid = np.ones((h, w), bool)
+    valid[h // 3: h // 3 + 4, w // 2: w // 2 + 6] = False
+    valid[:, :2] = valid[:2] = False
+    basic = clean + 4 * rng.standard_normal(clean.shape).astype(np.float32)
+    return cur, np.where(valid[..., None], prev, 0.0).astype(np.float32), valid, basic
+
+
+def pass_args(cur, prev, valid, basic, kb):
+    """name -> dense_pass arguments of the slice's four 1080p passes."""
+    import torch
+    from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+
+    out = {}
+    for name, mode, fm, has_prev, has_basic in (
+            ("flt1 first frame", "filter", FilterMode.FLT1, False, False),
+            ("flt1", "filter", FilterMode.FLT1, True, False),
+            ("flt2", "filter", FilterMode.FLT2, True, True),
+            ("smo1", "smooth", FilterMode.SMO1, True, False)):
+        out[name] = (cur, prev if has_prev else torch.zeros_like(cur),
+                     valid if has_prev else torch.zeros_like(valid),
+                     basic if has_basic else cur, SIGMA, default_params(SIGMA, fm),
+                     mode, has_prev, has_basic, kb)
+    return out
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call between CUDA events, after one warm-up."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def stage_ms(fn, reps: int) -> dict | None:
+    """Device milliseconds per call of each K1 stage over ``reps`` profiled
+    calls; None where the profiler saw no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = device_events(prof)
+    if not ev:
+        return None
+    by = kernel_ms(ev, lambda n: next((k for k in STAGES if k in n), "other"))
+    return {k: by.get(k, 0.0) / reps for k in STAGES}
+
+
+def worker(root: str) -> dict:
+    """Time one checkout's K1 (imported from ``root``) on the card."""
+    sys.path.insert(0, root)
+    import torch
+    from bwd_nlkalman_tpu_torch import _build
+    from bwd_nlkalman_tpu_torch.core.engine import nlk_bases
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.ops.bases import make_bases
+
+    if not torch.cuda.is_available():
+        raise SystemExit("k1_bench: no CUDA device")
+    _build.library()
+    rng = np.random.default_rng(0)
+    cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                               for a in nlk_inputs(rng, *FULL, 1))
+    kb = make_bases(nlk_bases(8), "cuda")
+    res = {}
+    for name, args in pass_args(cur, prev, valid, basic, kb).items():
+        fn = lambda: dense_pass_cuda(*args)  # noqa: E731
+        res[name] = {"ms": cuda_ms(fn, REPS), "stages_ms": stage_ms(fn, 3)}
+    return {"root": os.path.relpath(root, ROOT) if root != ROOT else ".",
+            "card": card(), "torch": torch.__version__, "passes": res}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--against", help="another checkout's root, timed in turns")
+    ap.add_argument("--worker", help=argparse.SUPPRESS)
+    a = ap.parse_args(argv)
+    if a.worker:
+        print(json.dumps(worker(os.path.abspath(a.worker))), flush=True)
+        return 0
+    roots = [ROOT] if not a.against else [a.against, ROOT, ROOT, a.against]
+    runs = []
+    for r in roots:
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
+                              os.path.abspath(r)],
+                             capture_output=True, text=True)
+        if out.returncode != 0:
+            sys.stderr.write(out.stdout + out.stderr)
+            return out.returncode
+        line = out.stdout.strip().splitlines()[-1]
+        print(line, flush=True)
+        runs.append(json.loads(line))
+    mean = {}
+    for run in runs:
+        m = mean.setdefault(run["root"], {})
+        for name, p in run["passes"].items():
+            m.setdefault(name, []).append(p["ms"])
+    print(json.dumps({"card": runs[0]["card"], "mean_ms": {
+        root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -11,15 +11,20 @@ arguments, one GPU). Phases, each reported on its own line:
    from ``bwd_nlkalman_tpu_torch/csrc``, one nvcc per source, into
    ``build/torch_kernels/`` and prints the seconds it took;
 3. parity: each kernel against its plain PyTorch version on the card, on
-   the JAX suite's cases and at the slices' shapes, with the tolerance
-   stated beside it; then each kernel's time against its plain version's
-   and the least time the card could take for the same work (its bound);
+   the JAX suite's cases, at the edges of K1's site blocks (a ragged
+   3-channel frame, the 961-offset window) and at the slices' shapes,
+   with the tolerance stated beside it; then each kernel's time against
+   its plain version's and the least time the card could take for the
+   same work (its bound), and K1's device time per stage from
+   torch.profiler;
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
-   denoise, and K1, K2 and K4 must have launched during that run;
+   denoise, and K1, K2 and K4 must have launched during that run; then
+   one more run under torch.profiler: device busy time, idle share and
+   the five kernels that take the most device time;
 5. slice 2: ``NLKalmanDenoiser`` with full-resolution flow (fscale=0) on
    3 frames of 1080p gray; the 1080x1920 flow level runs K3, so K1, K2,
-   K3 and K4 must all have launched;
+   K3 and K4 must all have launched; then a profiled run as in phase 4;
 6. ``python -m bwd_nlkalman_tpu_torch.cli.tvl1flow`` (run in this
    process) on one 1080p PNG pair at its default fscale=0: the .flo must
    read back finite and K3 must have launched;
@@ -90,24 +95,10 @@ def psnr(clean, x) -> float:
     return float(10 * torch.log10(255.0 ** 2 / torch.mean(d * d)))
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Mean milliseconds per call between CUDA events, after one warm-up."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def timed_pair(kernel_fn, plain_fn, reps_k, reps_p):
     """Kernel and plain times in turns (plain, kernel, kernel, plain)."""
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
+
     p1 = cuda_ms(plain_fn, reps_p)
     k1 = cuda_ms(kernel_fn, reps_k)
     k2 = cuda_ms(kernel_fn, reps_k)
@@ -203,25 +194,13 @@ TIMES = {}      # kernel id -> (kernel ms, plain ms)
 BOUNDS = {}     # kernel id -> (least ms, "bytes" or "operations") of the timed call
 
 
-def _nlk_inputs(rng, h, w, ch, sigma=SIGMA):
-    yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    clean = (100 + 60 * np.sin(0.1 * xx) + 50 * np.cos(0.13 * yy))[..., None]
-    clean = np.repeat(clean, ch, -1).astype(np.float32)
-    cur = clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)
-    prev = clean + 2 * rng.standard_normal(clean.shape).astype(np.float32)
-    valid = np.ones((h, w), bool)
-    valid[h // 3: h // 3 + 4, w // 2: w // 2 + 6] = False
-    valid[:, :2] = valid[:2] = False
-    basic = clean + 4 * rng.standard_normal(clean.shape).astype(np.float32)
-    return cur, np.where(valid[..., None], prev, 0.0).astype(np.float32), valid, basic
-
-
 def phase_k1(smi):
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
-    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda, pass_with_weights
     from bwd_nlkalman_tpu_torch.ops.bases import make_bases
     from bwd_nlkalman_tpu_torch.params import FilterMode, NLKParams, default_params
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import nlk_inputs, pass_args, stage_ms
 
     prms = NLKParams(patch_sz=8, search_sz_x=6, search_sz_t=3, npatches_x=12,
                      npatches_t=8, npatches_tagg=4, dista_lambda=1.0,
@@ -241,12 +220,24 @@ def phase_k1(smi):
         ("filter", True, True, default_params(SIGMA, FilterMode.FLT2), 1, *MID),
         ("smooth", True, False, default_params(SIGMA, FilterMode.SMO1), 1, *MID),
     ]
-    rng = np.random.default_rng(0)
+    # the edges of the site blocks, drawn from their own generator so that
+    # the 1080p inputs below stay those of earlier runs: a ragged frame
+    # (hh - 1 no multiple of 4, a partial last run of sites) at 3 channels,
+    # and the largest window K1 takes (rad 15, 961 offsets)
+    edges = [
+        ("filter", True, False, default_params(SIGMA, FilterMode.FLT1), 3, 37, 53),
+        ("filter", True, False, NLKParams(patch_sz=8, search_sz_x=15, search_sz_t=5,
+                                          npatches_x=50, npatches_t=30, npatches_tagg=20,
+                                          dista_lambda=1.0, beta_x=3.1, beta_t=1.95),
+         1, 64, 96),
+    ]
+    rng, rng_edges = np.random.default_rng(0), np.random.default_rng(1)
     kb = make_bases(nlk_bases(8), "cuda")
     worst = 0.0
-    for mode, has_prev, has_basic, p, ch, h, w in cases:
-        cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
-                                   for a in _nlk_inputs(rng, h, w, ch))
+    for i, (mode, has_prev, has_basic, p, ch, h, w) in enumerate(cases + edges):
+        cur, prev, valid, basic = (
+            torch.from_numpy(np.ascontiguousarray(a)).cuda()
+            for a in nlk_inputs(rng if i < len(cases) else rng_edges, h, w, ch))
         if not has_prev:
             prev, valid = torch.zeros_like(cur), torch.zeros_like(valid)
         if not has_basic:
@@ -258,6 +249,7 @@ def phase_k1(smi):
         err = max_err(got, want)
         worst = max(worst, err)
         log(f"[3 parity] K1 {mode} prev={has_prev} basic={has_basic} ch={ch} "
+            f"rad={max(p.search_sz_x, p.search_sz_t) if mode == 'filter' else p.search_sz_t} "
             f"{h}x{w}: max abs err {err:.3e} (rtol 1e-3, atol 5e-2)")
         assert_close("K1", got, want, rtol=1e-3, atol=5e-2)
     PARITY["K1"] = worst
@@ -269,35 +261,35 @@ def phase_k1(smi):
     # first frame, 10 with a previous frame); a grid or indexing fault moves
     # far more
     cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
-                               for a in _nlk_inputs(rng, *FULL, 1))
-    for name, mode, fm, has_prev, has_basic, timed in (
-            ("flt1 first frame", "filter", FilterMode.FLT1, False, False, False),
-            ("flt1", "filter", FilterMode.FLT1, True, False, True),
-            ("flt2", "filter", FilterMode.FLT2, True, True, False),
-            ("smo1", "smooth", FilterMode.SMO1, True, False, True)):
-        args = (cur, prev if has_prev else torch.zeros_like(cur),
-                valid if has_prev else torch.zeros_like(valid),
-                basic if has_basic else cur, SIGMA, default_params(SIGMA, fm),
-                mode, has_prev, has_basic, kb)
-        if timed:
+                               for a in nlk_inputs(rng, *FULL, 1))
+    for name, args in pass_args(cur, prev, valid, basic, kb).items():
+        mode, has_prev, has_basic = args[6:9]
+        if name in ("flt1", "smo1"):
             k_ms, p_ms = timed_pair(lambda: dense_pass_cuda(*args),
                                     lambda: dense_pass_v2(*args), 5, 1)
             b_ms, b_by = bound(*k1_work(cur, valid, args[5], mode, has_prev, has_basic))
             log(f"[3 time] K1 {mode} 1080p gray: kernel {k_ms:.2f} ms, plain "
                 f"{p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}) ({smi})")
+            st = stage_ms(lambda: dense_pass_cuda(*args), 3)
+            log(f"[3 stages] K1 {name} 1080p gray, device ms per pass by kernel "
+                "(torch.profiler, 3 passes): " + (
+                    ", ".join(f"{k} {v:.3f}" for k, v in st.items()) if st
+                    else "not measured") + f" ({smi})")
             if mode == "filter":
                 TIMES["K1"] = (k_ms, p_ms)
                 BOUNDS["K1"] = (b_ms, b_by)
-        got, want = dense_pass_cuda(*args), dense_pass_v2(*args)
+        got, wq = pass_with_weights(*args)
+        want = dense_pass_v2(*args)
         diff = (got - want).abs()
         share = float(((diff > 5e-2 + 1e-3 * want.abs()).sum())) / want.numel()
         mean = float(diff.mean())
         log(f"[3 parity] K1 {name} 1080p gray: max abs err {float(diff.max()):.3e}, "
             f"mean abs err {mean:.3e} (<= {K1_FULL_MEAN:g}), share beyond rtol 1e-3 "
-            f"/ atol 5e-2 {share:.2e} (<= {K1_FULL_SHARE:g})")
+            f"/ atol 5e-2 {share:.2e} (<= {K1_FULL_SHARE:g}); patch positions "
+            f"chosen by a site {float((wq != 0).float().mean()):.4f}")
         check(share <= K1_FULL_SHARE, f"K1 {name} 1080p: {share} of pixels beyond the bar")
         check(mean <= K1_FULL_MEAN, f"K1 {name} 1080p: mean abs err {mean}")
-        del got, want, diff, args
+        del got, want, diff, args, wq
         torch.cuda.empty_cache()
 
 
@@ -552,7 +544,35 @@ def phase_slice(smi):
     check(p_s >= p_n + 6.0, "smo1 does not denoise by 6 dB")
     check(p_s >= p_2 - 0.1, "smo1 is worse than flt2 by more than 0.1 dB")
     check(launches["K1"] >= 3 * t - 1, f"K1 ran {launches['K1']} passes")
+    profile_slice(lambda: model(noisy), "4 slice profile", smi)
     return launches
+
+
+def profile_slice(run, tag, smi):
+    """One more run under torch.profiler: device busy time (the union of
+    the device activities), the idle share of the run's host wall time and
+    the five kernels that take the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import busy_ms, device_events, kernel_ms
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    ev = device_events(prof)
+    if not ev:
+        log(f"[{tag}] device busy, idle share and top kernels: not measured "
+            f"(the profiler saw no device time); wall {wall:.1f} ms ({smi})")
+        return
+    busy = busy_ms(ev)
+    top = sorted(kernel_ms(ev).items(), key=lambda kv: -kv[1])[:5]
+    log(f"[{tag}] device busy {busy:.1f} ms of {wall:.1f} ms wall under the profiler, "
+        f"idle {100 * (1 - busy / wall):.1f}%; top kernels by device time: " +
+        ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)" for k, v in top) + f" ({smi})")
 
 
 def phase_slice_fullres(smi):
@@ -581,6 +601,7 @@ def phase_slice_fullres(smi):
     log(f"[5 slice fscale=0] {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
     check(p_s >= p_n + 6.0, "fscale=0 smo1 does not denoise by 6 dB")
     check(launches["K1"] >= 3 * t - 1, f"K1 ran {launches['K1']} passes")
+    profile_slice(lambda: model(noisy), "5 slice fscale=0 profile", smi)
     return launches
 
 

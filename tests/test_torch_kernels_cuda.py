@@ -7,6 +7,8 @@ test machines have none, and no nvcc). On a GPU machine, run
 file imports no JAX.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -52,28 +54,52 @@ def test_warp_kernel_matches_plain(dev, c):
     torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
 
 
-@pytest.mark.parametrize("mode,fm,has_prev,has_basic", [
-    ("filter", FilterMode.FLT1, False, False),
-    ("filter", FilterMode.FLT1, True, False),
-    ("filter", FilterMode.FLT2, True, True),
-    ("smooth", FilterMode.SMO1, True, False),
-])
-def test_nlk_kernel_matches_plain(dev, mode, fm, has_prev, has_basic):
+NLK_CASES = [
+    # mode, filter mode, has_prev, has_basic, h, w, channels, search_sz_x,
+    # invalid blocks in prev_valid
+    ("filter", FilterMode.FLT1, False, False, 48, 64, 1, None, False),
+    ("filter", FilterMode.FLT1, True, False, 48, 64, 1, None, False),
+    ("filter", FilterMode.FLT2, True, True, 48, 64, 1, None, False),
+    ("smooth", FilterMode.SMO1, True, False, 48, 64, 1, None, False),
+    # a ragged frame: hh - 1 no multiple of 4, a partial last run of sites
+    ("filter", FilterMode.FLT1, True, False, 37, 53, 1, None, False),
+    ("smooth", FilterMode.SMO1, True, False, 37, 53, 1, None, False),
+    ("filter", FilterMode.FLT1, True, False, 48, 64, 2, None, False),
+    ("filter", FilterMode.FLT1, True, False, 37, 53, 3, None, False),
+    ("smooth", FilterMode.SMO1, True, False, 37, 53, 3, None, False),
+    # the largest window K1 takes: 961 offsets
+    ("filter", FilterMode.FLT1, True, False, 64, 96, 1, 15, False),
+    ("filter", FilterMode.FLT1, False, False, 64, 96, 1, 15, False),
+    # compact and full candidate lists in one site block
+    ("filter", FilterMode.FLT1, True, False, 48, 64, 1, None, True),
+    ("filter", FilterMode.FLT2, True, True, 48, 64, 1, None, True),
+]
+
+
+@pytest.mark.parametrize("mode,fm,has_prev,has_basic,h,w,c,sx,blocks", NLK_CASES)
+def test_nlk_kernel_matches_plain(dev, mode, fm, has_prev, has_basic, h, w, c, sx,
+                                  blocks):
     rng = np.random.default_rng(0)
-    h, w = 48, 64
     yy, xx = np.meshgrid(np.arange(h), np.arange(w), indexing="ij")
-    clean = (100 + 60 * np.sin(0.1 * xx) + 50 * np.cos(0.13 * yy))[..., None].astype(np.float32)
+    clean = (100 + 60 * np.sin(0.1 * xx) + 50 * np.cos(0.13 * yy))[..., None]
+    clean = np.repeat(clean, c, -1).astype(np.float32)
     cur = _t(clean + 20 * rng.standard_normal(clean.shape).astype(np.float32), dev)
     valid = np.ones((h, w), bool)
     valid[:2] = valid[:, :2] = False
+    if blocks:  # sites of one block see valid and invalid previous patches
+        valid[14:22, 18:26] = False
+        valid[30:33, 40:44] = False
     prev = _t(np.where(valid[..., None], clean + 2 * rng.standard_normal(clean.shape), 0)
               .astype(np.float32), dev)
     basic = _t(clean + 4 * rng.standard_normal(clean.shape).astype(np.float32), dev)
     valid = _t(valid, dev)
     if not has_prev:
         prev, valid = torch.zeros_like(cur), torch.zeros_like(valid)
-    args = (cur, prev, valid, basic if has_basic else cur, 20.0,
-            default_params(20.0, fm), mode, has_prev, has_basic)
+    prms = default_params(20.0, fm)
+    if sx is not None:
+        prms = dataclasses.replace(prms, search_sz_x=sx)
+    args = (cur, prev, valid, basic if has_basic else cur, 20.0, prms, mode,
+            has_prev, has_basic)
     torch.testing.assert_close(dense_pass_cuda(*args), dense_pass_v2(*args),
                                rtol=1e-3, atol=5e-2)
 

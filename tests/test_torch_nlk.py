@@ -19,6 +19,8 @@ from bwd_nlkalman_tpu.params import FilterMode, NLKParams, default_params
 from bwd_nlkalman_tpu_torch.convert import params_from_jax
 from bwd_nlkalman_tpu_torch.core import nlkalman_filter_frame, nlkalman_smooth_frame
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
+from bwd_nlkalman_tpu_torch.core.engine_cuda import MAX_RAD, dense_pass_cuda, site_plan
+from bwd_nlkalman_tpu_torch.tools.k1_bench import busy_ms, kernel_ms
 
 torch.set_num_threads(1)
 
@@ -111,3 +113,53 @@ def test_smooth_frame_default_params(rng, with_prev):
         *[None if a is None else torch.from_numpy(a) for a in args], sigma,
         params_from_jax(prms))
     np.testing.assert_allclose(got.numpy(), want, rtol=1e-3, atol=5e-2)
+
+
+@pytest.mark.parametrize("c", [1, 2, 3])
+def test_k1_launch_plan_fits(c):
+    """K1's site block fits the H100's 227 KB of shared memory a block may
+    use, for every radius it takes, and holds what its layout needs: two
+    stage buffers of two window rows (stride F + 1 floats) or three
+    256-bin histograms per warp, which then hold its member list (2 bytes
+    an offset), and each warp's vector, bits and flags."""
+    f = 64 * c
+    for rad in range(1, MAX_RAD + 1):
+        sites, smem = site_plan(c, rad)
+        n_off = (2 * rad + 1) ** 2
+        strip = 4 * (4 * (sites - 1) + 2 * rad + 1) * (f + 1) * 4
+        assert 1 <= sites <= 8
+        assert smem <= 232_448
+        assert 2 * n_off <= 3 * 256 * 4
+        assert smem >= max(strip, sites * 3 * 256 * 4) + sites * (4 * f + 5 * n_off)
+        assert smem % 16 == 0
+
+
+@pytest.mark.parametrize("kw", [dict(c=1, rad=16), dict(c=3, rad=16), dict(c=4, rad=10),
+                                dict(c=0, rad=10), dict(c=1, rad=10, psz=6),
+                                dict(c=1, rad=10, psz=16)])
+def test_k1_launch_plan_refuses(kw):
+    with pytest.raises(ValueError):
+        site_plan(**kw)
+
+
+def test_k1_wrapper_takes_cuda_tensors_only(rng):
+    """On CPU tensors the wrapper raises before it plans or launches
+    anything; dense_pass runs the plain version there instead."""
+    cur, prev, valid, basic = (torch.from_numpy(a) for a in _inputs(rng))
+    prms = params_from_jax(PRMS)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        dense_pass_cuda(cur, prev, valid, basic, 20.0, prms, "filter", True, False)
+
+
+def test_k1_bench_profile_helpers():
+    """The profiler helpers chip_smoke.py reads its per-stage times, busy
+    time and top kernels with: names without namespaces or arguments, and
+    busy time as the union of overlapping device intervals (in us)."""
+    ev = [("void (anonymous namespace)::site_kernel<2>((anonymous namespace)::SiteArgs)",
+           0.0, 1000.0),
+          ("void (anonymous namespace)::site_kernel<2>((anonymous namespace)::SiteArgs)",
+           500.0, 2000.0),
+          ("Memset (Device)", 3000.0, 3500.0)]
+    assert kernel_ms(ev) == {"site_kernel<2>": 2.5, "Memset": 0.5}
+    assert busy_ms(ev) == 2.5
+    assert busy_ms([]) == 0.0

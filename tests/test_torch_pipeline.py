@@ -164,7 +164,7 @@ def test_port_never_imports_jax(tmp_path):
         "from bwd_nlkalman_tpu_torch import convert\n"
         "from bwd_nlkalman_tpu_torch.cli import nlkalman_seq, tvl1flow\n"
         "from bwd_nlkalman_tpu_torch.io import write_png\n"
-        "from bwd_nlkalman_tpu_torch.tools import vpu_probe\n"
+        "from bwd_nlkalman_tpu_torch.tools import k1_bench, vpu_probe\n"
         "x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 24, 32, 1))"
         ".astype(np.float32))\n"
         "out = P.NLKalmanDenoiser(20.0, 24, 32, device='cpu')(x)\n"
