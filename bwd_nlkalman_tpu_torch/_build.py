@@ -37,9 +37,10 @@ _D = ctypes.c_double
 # C entry points: name -> argument types (all return a cudaError_t as int)
 SIGNATURES = {
     "bnlk_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
-    "bnlk_tvl1_level": [_P, _P, _P, _P, _I, _I, _I, _D, _F, _D, _D, _I, _I, _P,
-                        _P],
-    "bnlk_tvl1_block": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _D, _D, _D, _P],
+    "bnlk_tvl1_level": [_P, _P, _P, _P, _P, _I, _I, _I, _D, _F, _D, _D, _I, _I,
+                        _I, _I, _I, _I, _P, _P],
+    "bnlk_tvl1_stage": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D,
+                        _D, _I, _I, _I, _I, _P],
     "bnlk_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bnlk_nlk_dct": [_P, _P, _P, _P, _P, _I, _I, _I, _P],
     "bnlk_nlk_sites": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,

@@ -43,14 +43,30 @@ def check_tensor(t: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
 
 
 class LaunchCounter:
-    """Plain integer count of a kernel's launches (one per wrapper call),
-    or of the work they did."""
+    """Count of a kernel's launches (one per wrapper call), or of the work
+    they did. A kernel that decides its own work on the device adds it to
+    a device int (:meth:`slot`) instead, so that the host reads nothing
+    while the kernel runs; :attr:`count` reads those ints, one host read
+    per device."""
 
     def __init__(self):
-        self.count = 0
+        self._host = 0
+        self._slots: dict[torch.device, torch.Tensor] = {}
 
     def add(self, n: int = 1) -> None:
-        self.count += n
+        self._host += n
+
+    def slot(self, device: torch.device) -> torch.Tensor:
+        """The int32 tensor on ``device`` that kernels add their counts to."""
+        if device not in self._slots:
+            self._slots[device] = torch.zeros(1, dtype=torch.int32, device=device)
+        return self._slots[device]
+
+    @property
+    def count(self) -> int:
+        return self._host + sum(int(s) for s in self._slots.values())
 
     def reset(self) -> None:
-        self.count = 0
+        self._host = 0
+        for s in self._slots.values():
+            s.zero_()

@@ -1,6 +1,6 @@
-// Fixed-order sums shared by the TV-L1 kernels (K2, K3): the stopping
-// test's mean squared update must not depend on launch or scheduling
-// order, so no atomics; every sum below adds in one fixed order.
+// The fixed-order block sum of the TV-L1 kernels (K2, K3, tvl1_tile.cuh):
+// the stopping test's mean squared update must not depend on launch or
+// scheduling order, so no atomics; the sum adds in one fixed order.
 #pragma once
 
 namespace {
@@ -21,19 +21,6 @@ __device__ __forceinline__ float bnlk_block_sum(float v) {
   if (t == 0)
     for (int k = 0; k < kThreads / 32; ++k) s += warp_sums[k];
   return s;
-}
-
-constexpr int kMeanThreads = 256;
-
-// One block of kMeanThreads threads: *out = (sum of the n partials) / size,
-// each thread first adding the partials k = t, t + 256, ... in order.
-__global__ void bnlk_mean_of_partials(const float* __restrict__ partials,
-                                      int n, float size,
-                                      float* __restrict__ out) {
-  float s = 0.0f;
-  for (int k = threadIdx.x; k < n; k += kMeanThreads) s += partials[k];
-  s = bnlk_block_sum<kMeanThreads>(s);
-  if (threadIdx.x == 0) *out = s / size;
 }
 
 }  // namespace

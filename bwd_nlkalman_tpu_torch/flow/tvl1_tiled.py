@@ -6,9 +6,11 @@ the 1080x1920 level of a full-resolution (fscale=0) flow. The warp and
 the constants run outside the kernel, once per warp stage
 (tvl1_pallas.py:269-285): K4 warps (I1, I1x, I1y) along u, then grad =
 |grad I1w|^2 and rho_c elementwise. The iterations run in blocks of
-``K_ITERS``: on CUDA tensors each block is the hand-written kernel K3
-(``tvl1_block_cuda.py``), on CPU tensors :func:`tvl1_block_plain`, the
-same arithmetic in plain PyTorch:
+``K_ITERS``: on CUDA tensors a warp stage's blocks, stopping rule
+included, are one launch of the hand-written kernel K3
+(``tvl1_block_cuda.py``), with no host read; on CPU tensors
+:func:`tvl1_stage_plain` loops over :func:`tvl1_block_plain`, the same
+arithmetic in plain PyTorch:
 
 - the where form of the threshold step with the lo/hi masks and
   fi = -rho / max(grad, 1e-10) (tvl1_pallas.py:101-110);
@@ -32,7 +34,7 @@ import torch
 from .._dispatch import use_kernel
 from ..ops.grad import centered_gradient, divergence, forward_gradient
 from ..ops.warp import warp_bicubic_zero_multi
-from .tvl1_block_cuda import tvl1_block_cuda
+from .tvl1_block_cuda import tvl1_block_cuda, tvl1_stage_cuda
 
 GRAD_IS_ZERO = 1e-10  # tvl1flow_lib.c:26
 K_ITERS = 24          # iterations per block (tvl1_pallas.py:32)
@@ -86,17 +88,35 @@ def tvl1_block(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3,
     return tvl1_block_plain(state, consts, k_iters, tau, lambda_, theta)
 
 
+def tvl1_stage_plain(state, consts, k_iters, max_iters, epsilon, tau=0.25,
+                     lambda_=0.15, theta=0.3):
+    """Plain version of K3's stage entry: blocks of ``k_iters`` iterations
+    while the last block's mean squared update exceeds epsilon^2 and fewer
+    than ``max_iters`` iterations ran (tvl1_pallas.py:287-301). One host
+    read per block. Returns (new state, blocks run)."""
+    eps2 = float(np.float32(epsilon * epsilon))
+    err, n, blocks = float("inf"), 0, 0
+    while err > eps2 and n < max_iters:
+        state, err_t = tvl1_block(state, consts, k_iters, tau, lambda_, theta,
+                                  engine="plain")
+        err = float(err_t)
+        n += k_iters
+        blocks += 1
+    return state, blocks
+
+
 def tvl1_single_scale_tiled(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
                             nwarps=5, epsilon=0.01, max_iters=300,
                             engine: str = "auto"):
     """One TV-L1 level (tvl1_single_scale_pallas, tvl1_pallas.py:240).
 
-    i0, i1: (H, W) float32; u_init: (H, W, 2). Returns (H, W, 2). One
-    host sync per block of K_ITERS iterations (the stopping test)."""
+    i0, i1: (H, W) float32; u_init: (H, W, 2). Returns (H, W, 2). On CUDA
+    tensors no host sync: each warp stage is K4's warp, the constants and
+    one launch of K3."""
     h, w = i0.shape
     i1x, i1y = centered_gradient(i1)
     i1s = torch.stack([i1, i1x, i1y], dim=-1)
-    eps2 = float(np.float32(epsilon * epsilon))
+    kernel = use_kernel(i0, engine)
     state = torch.cat([u_init.permute(2, 0, 1).to(torch.float32),
                        i0.new_zeros((4, h, w))])
     for _ in range(nwarps):
@@ -105,12 +125,9 @@ def tvl1_single_scale_tiled(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
         i1w, i1wx, i1wy = wrp.unbind(-1)
         consts = torch.stack([i1wx, i1wy, i1wx * i1wx + i1wy * i1wy,
                               i1w - i1wx * u1 - i1wy * u2 - i0])
-        err, n = float("inf"), 0
-        while err > eps2 and n < max_iters:
-            state, err_t = tvl1_block(state, consts, K_ITERS, tau, lambda_,
-                                      theta, engine)
-            err = float(err_t)
-            n += K_ITERS
+        stage = tvl1_stage_cuda if kernel else tvl1_stage_plain
+        state = stage(state, consts, K_ITERS, max_iters, epsilon, tau, lambda_,
+                      theta)[0]
     return state[:2].permute(1, 2, 0).contiguous()
 
 

@@ -44,14 +44,15 @@ def bicubic_warp_plain(im: torch.Tensor, flow: torch.Tensor,
     fx = (cx - flx)[..., None]
     fy = (cy - fly)[..., None]
     valid = (flx - 1 >= 0) & (flx + 2 <= w - 1) & (fly - 1 >= 0) & (fly + 2 <= h - 1)
-    # clamped taps: values outside the frame are never used
+    # clamped taps: values outside the frame are never used (a frame under
+    # 4 px has no valid pixel, and its taps stay inside the frame too)
     bx = torch.where(valid, flx - 1, 0).long()
     by = torch.where(valid, fly - 1, 0).long()
     flat = im.reshape(h * w, c)
     cols = []
     for i in range(4):
-        rows = [flat[((by + k) * w + bx + i).reshape(-1)].reshape(h, w, c)
-                for k in range(4)]
+        rows = [flat[torch.clamp((by + k) * w + bx + i, max=h * w - 1).reshape(-1)]
+                .reshape(h, w, c) for k in range(4)]
         cols.append(_cubic(rows[0], rows[1], rows[2], rows[3], fy))
     out = _cubic(cols[0], cols[1], cols[2], cols[3], fx)
     if occl is not None:

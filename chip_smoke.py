@@ -7,7 +7,7 @@ arguments, one GPU). Phases, each reported on its own line:
 1. device: fails unless CUDA is available; prints the card's name and
    power limit (nvidia-smi) and turns TF32 off for matmuls and convs;
 2. build: compiles the hand-written kernels (K1 NLK pass, K2 TV-L1
-   level, K3 TV-L1 tiled block, K4 bicubic warp, P streaming-rate probe)
+   level, K3 TV-L1 tiled stage, K4 bicubic warp, P streaming-rate probe)
    from ``bwd_nlkalman_tpu_torch/csrc``, one nvcc per source, into
    ``build/torch_kernels/`` and prints the seconds it took;
 3. parity: each kernel against its plain PyTorch version on the card, on
@@ -16,7 +16,9 @@ arguments, one GPU). Phases, each reported on its own line:
    with the tolerance stated beside it; then each kernel's time against
    its plain version's and the least time the card could take for the
    same work (its bound), and K1's device time per stage from
-   torch.profiler;
+   torch.profiler; K2's and K3's levels must run as many iterations /
+   blocks as their plain versions, and run with no host sync (torch's
+   sync debug mode set to "error"); the counts are read once after;
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
    denoise, and K1, K2 and K4 must have launched during that run; then
@@ -66,9 +68,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_S = 3.35e12   # device memory
 F32_FLOPS_S = 67e12     # float32 outside the tensor cores
 # FLOPs per pixel, counted from the kernels' arithmetic (an FMA is 2)
-K2_FLOPS_ITER = 49      # one K2 iteration (tvl1_level.cu iter_kernel)
+K2_FLOPS_ITER = 49      # one K2 iteration (K2Rule of csrc/tvl1_tile.cuh)
 K2_FLOPS_WARP = 280     # one K2 warp stage: 3-channel bicubic + constants
-K3_FLOPS_ITER = 50      # one K3 iteration (tvl1_block.cu iter_kernel)
+K3_FLOPS_ITER = 50      # one K3 iteration (K3Rule of csrc/tvl1_tile.cuh)
 K4_FLOPS_CH = 96        # one K4 channel: 5 Catmull-Rom cubics + coordinates
 
 
@@ -110,6 +112,19 @@ def check(ok, msg: str) -> None:
     """Fail the run unless ``ok`` (an ``assert`` would vanish under -O)."""
     if not ok:
         raise RuntimeError(f"chip_smoke: {msg}")
+
+
+def no_host_sync(fn):
+    """fn() with torch's sync debug mode at "error": a host sync inside
+    raises. The kernels' C entries read nothing back by construction."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        return fn()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 def max_err(a, b) -> float:
@@ -295,7 +310,7 @@ def phase_k1(smi):
 
 def phase_k2(smi):
     import torch
-    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_fused
     from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS, tvl1_level_cuda
     from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
 
@@ -330,16 +345,27 @@ def phase_k2(smi):
     k_ms, p_ms = timed_pair(lambda: tvl1_level_cuda(a, b, u0, **kw),
                             lambda: tvl1_level_plain(a, b, u0, **kw), 3, 1)
     ITERATIONS.reset()
-    got, want = tvl1_level_cuda(a, b, u0, **kw), tvl1_level_plain(a, b, u0, **kw)
+    got = no_host_sync(lambda: tvl1_level_cuda(a, b, u0, **kw))
+    iters = ITERATIONS.count          # the one host read of the level
+    plain_iters = []
+    one_iter = tvl1_fused._one_iter
+    tvl1_fused._one_iter = lambda *args: plain_iters.append(1) or one_iter(*args)
+    try:
+        want = tvl1_level_plain(a, b, u0, **kw)
+    finally:
+        tvl1_fused._one_iter = one_iter
     epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
     err = max_err(got, want)
     npx = a.numel()
-    b_ms, b_by = bound(ITERATIONS.count * npx * K2_FLOPS_ITER + 5 * npx * K2_FLOPS_WARP,
-                       24 * npx)
+    b_ms, b_by = bound(iters * npx * K2_FLOPS_ITER + 5 * npx * K2_FLOPS_WARP, 24 * npx)
     BOUNDS["K2"] = (b_ms, b_by)
     log(f"[3 time] K2 level {a.shape[0]}x{a.shape[1]} nwarps=5: kernel "
         f"{k_ms:.2f} ms, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}; "
-        f"{ITERATIONS.count} iterations) ({smi})")
+        f"{iters} iterations) ({smi})")
+    log(f"[3 counts] K2 level {a.shape[0]}x{a.shape[1]}: iterations kernel {iters}, "
+        f"plain {len(plain_iters)}; host reads in the level 0 (sync debug mode "
+        f"'error'), after it 1 (the iteration counter)")
+    check(iters == len(plain_iters), "K2 540x960 level iteration count differs from plain")
     log(f"[3 parity] K2 level {a.shape[0]}x{a.shape[1]} nwarps=5: max abs err "
         f"{err:.3e} (<= {K2_LEVEL_MAX:g}), mean EPE {epe:.2e} px (<= {K2_LEVEL_EPE:g})")
     check(err <= K2_LEVEL_MAX, f"K2 540x960 level max abs err {err}")
@@ -386,13 +412,24 @@ def phase_k3(smi):
                               lambda: tvl1_tiled.tvl1_level_tiled_plain(a, b, u0, **kw),
                               2, 1)
     LAUNCHES.reset()
-    got = tvl1_tiled.tvl1_single_scale_tiled(a, b, u0, **kw)
-    want = tvl1_tiled.tvl1_level_tiled_plain(a, b, u0, **kw)
+    got = no_host_sync(lambda: tvl1_tiled.tvl1_single_scale_tiled(a, b, u0, **kw))
+    blocks = LAUNCHES.count           # the one host read of the level
+    plain_blocks = []
+    block = tvl1_tiled.tvl1_block
+    tvl1_tiled.tvl1_block = lambda *args, **k: plain_blocks.append(1) or block(*args, **k)
+    try:
+        want = tvl1_tiled.tvl1_level_tiled_plain(a, b, u0, **kw)
+    finally:
+        tvl1_tiled.tvl1_block = block
     epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
     err = max_err(got, want)
-    log(f"[3 time] K3 level {a.shape[0]}x{a.shape[1]} nwarps=5 (K4 warps, K3 "
-        f"blocks, host syncs): kernel {lk_ms:.2f} ms ({LAUNCHES.count} blocks of 24 "
+    log(f"[3 time] K3 level {a.shape[0]}x{a.shape[1]} nwarps=5 (K4 warps, constants, "
+        f"one K3 launch per warp stage): kernel {lk_ms:.2f} ms ({blocks} blocks of 24 "
         f"iterations), plain {lp_ms:.2f} ms ({smi})")
+    log(f"[3 counts] K3 level {a.shape[0]}x{a.shape[1]}: blocks kernel {blocks}, plain "
+        f"{len(plain_blocks)}; host reads in the level 0 (sync debug mode 'error'), "
+        f"after it 1 (the block counter)")
+    check(blocks == len(plain_blocks), "K3 1080x1920 level block count differs from plain")
     log(f"[3 parity] K3 level {a.shape[0]}x{a.shape[1]} nwarps=5: max abs err "
         f"{err:.3e} (<= {K3_LEVEL_MAX:g}), mean EPE {epe:.2e} px (<= {K3_LEVEL_EPE:g})")
     check(err <= K3_LEVEL_MAX, f"K3 1080x1920 level max abs err {err}")
@@ -412,8 +449,8 @@ def phase_k3(smi):
     BOUNDS["K3"] = bound(24 * npx * K3_FLOPS_ITER + 6 * npx, (6 + 4 + 6) * 4 * npx)
     TIMES["K3"] = (k_ms, p_ms)
     log(f"[3 time] K3 block of 24 iterations at {a.shape[0]}x{a.shape[1]}: kernel {k_ms:.3f} ms "
-        f"({1e3 * k_ms / 24:.1f} us per iteration), plain {p_ms:.3f} ms, bound "
-        f"{BOUNDS['K3'][0]:.4f} ms ({BOUNDS['K3'][1]}) ({smi})")
+        f"({1e3 * k_ms / 24:.1f} us per iteration; the level above {lk_ms:.2f} ms), plain "
+        f"{p_ms:.3f} ms, bound {BOUNDS['K3'][0]:.4f} ms ({BOUNDS['K3'][1]}) ({smi})")
 
 
 def _warp_flow(rng, h, w):

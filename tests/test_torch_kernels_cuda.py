@@ -15,7 +15,9 @@ import torch
 
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
 from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
-from bwd_nlkalman_tpu_torch.flow import tvl1_tiled
+from bwd_nlkalman_tpu_torch.flow import tvl1_block_cuda as k3
+from bwd_nlkalman_tpu_torch.flow import tvl1_cuda as k2
+from bwd_nlkalman_tpu_torch.flow import tvl1_fused, tvl1_tiled
 from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import tvl1_block_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
@@ -137,6 +139,57 @@ def test_tvl1_tiled_kernel_matches_plain(dev, monkeypatch, h, w, k, nwarps,
     torch.testing.assert_close(tvl1_tiled.tvl1_single_scale_tiled(i0, i1, u0, **kw),
                                tvl1_tiled.tvl1_level_tiled_plain(i0, i1, u0, **kw),
                                rtol=0.0, atol=atol)
+
+
+# levels of one tile whose halo is the frame border (2x2, 17x16, 25x41,
+# 37x53) and of many tiles with seams and a ragged last row and column
+# (270x480), at rounds of 1, 10 and 24 iterations
+LEVELS = [(2, 2), (17, 16), (25, 41), (37, 53), (270, 480)]
+
+
+@pytest.mark.parametrize("h,w", LEVELS)
+@pytest.mark.parametrize("k", [1, 10, 24])
+def test_tvl1_level_kernel_counts_match_plain(dev, monkeypatch, h, w, k):
+    """K2 against its plain version to convergence (two warp stages, a cap
+    of 300): the same iteration count, and the flow within 1e-2."""
+    i0, i1 = _level_pair(dev, h, w)
+    u0 = torch.zeros((h, w, 2), device=dev)
+    kw = dict(nwarps=2, k_check=k, max_iters=300)
+    plain_iters = []
+    one_iter = tvl1_fused._one_iter
+    monkeypatch.setattr(tvl1_fused, "_one_iter",
+                        lambda *a: plain_iters.append(1) or one_iter(*a))
+    want = tvl1_level_plain(i0, i1, u0, **kw)
+    k2.ITERATIONS.reset()
+    got = tvl1_level_cuda(i0, i1, u0, **kw)
+    assert k2.ITERATIONS.count == len(plain_iters)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2)
+
+
+@pytest.mark.parametrize("h,w", LEVELS)
+@pytest.mark.parametrize("k", [1, 10, 24])
+def test_tvl1_tiled_kernel_counts_match_plain(dev, monkeypatch, h, w, k):
+    """K3's level (with K4 warps) against its plain version to convergence:
+    the same block count, the flow within 1e-2, and no host sync in the
+    kernel's level (sync debug mode "error" raises on one)."""
+    monkeypatch.setattr(tvl1_tiled, "K_ITERS", k)
+    i0, i1 = _level_pair(dev, h, w)
+    u0 = torch.zeros((h, w, 2), device=dev)
+    kw = dict(nwarps=2, max_iters=300)
+    plain_blocks = []
+    block = tvl1_tiled.tvl1_block
+    monkeypatch.setattr(tvl1_tiled, "tvl1_block",
+                        lambda *a, **k_: plain_blocks.append(1) or block(*a, **k_))
+    want = tvl1_tiled.tvl1_level_tiled_plain(i0, i1, u0, **kw)
+    k3.LAUNCHES.reset()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = tvl1_tiled.tvl1_single_scale_tiled(i0, i1, u0, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert k3.LAUNCHES.count == len(plain_blocks)
+    torch.testing.assert_close(got, want, rtol=0.0, atol=1e-2)
 
 
 def test_tvl1_block_kernel_error_matches_plain(dev):

@@ -125,3 +125,16 @@ def test_warp_bicubic_zero(rng, c):
     out1 = warp.warp_bicubic_zero(_t(im[..., 0]), _t(u), _t(v))
     _close(out1, j_warp.warp_bicubic_zero(jnp.asarray(im[..., 0]), jnp.asarray(u),
                                           jnp.asarray(v)), atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w", [(2, 2), (3, 3), (2, 5), (5, 4)])
+def test_warp_bicubic_tiny_frames(rng, h, w):
+    """Frames under 4 px a side, as the coarsest TV-L1 levels: no pixel's
+    16 taps fit, and no tap may index past the frame."""
+    im = _img(rng, h, w, 3)
+    u, v = (0.3 * rng.standard_normal((h, w))).astype(np.float32), np.zeros((h, w), np.float32)
+    out = warp.warp_bicubic_zero_multi(_t(im), _t(u), _t(v))
+    _close(out, j_warp.warp_bicubic_zero_multi(jnp.asarray(im), jnp.asarray(u),
+                                               jnp.asarray(v)), atol=1e-3)
+    out, valid = warp.warp_bicubic_nan(_t(im), _t(np.stack([u, v], -1)))
+    assert not valid.any()
