@@ -1,5 +1,6 @@
-// Catmull-Rom bicubic sampling shared by the warp kernel (K4) and the
-// TV-L1 level kernel's warp stage (K2).
+// Catmull-Rom bicubic sampling: the cubic and the footprint test, shared
+// by K2's sampler (bnlk_bicubic_at, below; the TV-L1 level kernel's warp
+// stage) and K4's (warp_tap.cuh).
 //
 // Semantics of the JAX package's warps (bwd_nlkalman_tpu/ops/warp.py):
 // at absolute coordinates (cx, cy) the tap base is floor(c) - 1, the
@@ -18,16 +19,23 @@ __device__ __forceinline__ float bnlk_cubic(float v0, float v1, float v2,
                         x * (3.0f * (v1 - v2) + v3 - v0)));
 }
 
-// Samples the C-channel image `im` (H, W, C interleaved) at (cx, cy).
-// Writes C values to `out` (zero where invalid) and returns validity.
-// The bounds test runs on the floored floats, so a huge or non-finite
-// coordinate never reaches an integer conversion.
+// Whether the footprint at the floored coordinates (flx, fly) lies inside
+// an h x w frame. The test runs on the floored floats, so a huge or
+// non-finite coordinate is invalid and never reaches an integer conversion.
+__device__ __forceinline__ bool bnlk_footprint_in(float flx, float fly, int h,
+                                                  int w) {
+  return (flx - 1.0f >= 0.0f) && (flx + 2.0f <= (float)(w - 1)) &&
+         (fly - 1.0f >= 0.0f) && (fly + 2.0f <= (float)(h - 1));
+}
+
+// K2's sampler: the C-channel image `im` (H, W, C interleaved) at
+// (cx, cy). Writes C values to `out` (zero where invalid) and returns
+// validity.
 __device__ __forceinline__ bool bnlk_bicubic_at(const float* __restrict__ im,
                                                 int h, int w, int c, float cx,
                                                 float cy, float* out) {
   const float flx = floorf(cx), fly = floorf(cy);
-  const bool valid = (flx - 1.0f >= 0.0f) && (flx + 2.0f <= (float)(w - 1)) &&
-                     (fly - 1.0f >= 0.0f) && (fly + 2.0f <= (float)(h - 1));
+  const bool valid = bnlk_footprint_in(flx, fly, h, w);
   if (!valid) {
     for (int ch = 0; ch < c; ++ch) out[ch] = 0.0f;
     return false;

@@ -12,7 +12,7 @@
 //     (I1, I1x, I1y) with the centred gradient on a replicated border
 //     (mask.c:172-208), interleaved for the sampler;
 //   - per warp stage, the constants: bicubic warp of (I1, I1x, I1y) along
-//     u with K4's sampler (bicubic.cuh), then i1wx, i1wy, nig = guarded
+//     u with bnlk_bicubic_at (bicubic.cuh), then i1wx, i1wy, nig = guarded
 //     -1/|grad I1w|^2 and rho_c, one thread per pixel;
 //   - per warp stage, the stopping loop of the tile engine
 //     (tvl1_tile.cuh): rounds of k_check iterations in sub-rounds of at

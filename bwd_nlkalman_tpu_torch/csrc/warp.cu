@@ -1,55 +1,169 @@
-// K4: bicubic warp of a C-channel image along a flow field.
+// K4: bicubic warp of a C-channel image along a flow field, and the
+// constants of a TV-L1 warp stage.
 //
 // Replaces the Pallas kernel bwd_nlkalman_tpu/ops/warp_pallas.py:59
 // (_warp_kernel, launched by bicubic_warp_pallas). That kernel avoided
 // gathers, which are slow on the TPU, by shift-selecting over the source
-// held in VMEM. A GPU gathers well, so this is one direct 16-tap gather
-// per pixel and channel with the same base and tap semantics.
+// held in VMEM. A GPU gathers well: this is a direct 16-tap gather per
+// pixel with the same base and tap semantics.
 //
-// What bounds it on the card: device-memory bytes. Per pixel it reads the
-// flow (2 floats) and 16 taps per channel, which neighbouring threads
-// share through L1/L2 for smooth flow, and writes C floats and one byte.
-// A 1080p 2-channel warp takes 0.064 ms on an H100 80GB HBM3 at 700 W
-// (chip_smoke.py). Design: one thread per pixel, consecutive threads on
-// consecutive pixels so the flow reads and the output writes are
-// coalesced; the taps come through the cache. No shared memory, nothing
-// to tile.
+// What bounds it on the card: not the bytes. A 1080p 2-channel warp
+// moves 25 B a pixel, 0.0155 ms at 3.35 TB/s; the first version of this
+// kernel (one thread a pixel, 256 a block, an integer division each,
+// 16 x C scalar taps, the mask copied to bool by a second kernel) took
+// 0.0341 ms of device time with the L2 hot and 0.0366 ms flushed along
+// the main path's flow, on an H100 80GB HBM3 at 700 W
+// (tools/warp_bench.py): the taps' load latency, with too few warps in
+// flight to hide it, held it back. The design below was chosen among the
+// variants of tools/warp_variants.cu, timed on that card by
+// tools/warp_bench.py --variants (PERF.md, the findings on K4):
+// - registers: the main path's channel counts (1, 2, 3) are built for 16
+//   blocks of 128 threads an SM, the most it holds, so 32 registers a
+//   thread; caps of 40 and 64 were timed against it. 6 and the generic
+//   instance, whose taps need more registers, are built for 4;
+// - no barrier: staging each block's source window (the bounding box of
+//   its valid pixels' footprints) in shared memory with cp.async was
+//   slower along the main path's flows: the window's load waits for the
+//   block's flow, a box reduction and a barrier before any tap can be
+//   read, and the window's shared memory costs resident blocks;
+// - a tile of 32 x 8 pixels, 32 threads on consecutive x and 2 rows a
+//   thread: each tap's warp-wide load covers one row of 32 pixels, and a
+//   thread has two pixels' loads in flight; a 2-D grid, so no integer
+//   division; flow read as float2;
+// - the channel count a template parameter (1, 2, 3, 6; any other count
+//   up to 8 takes the generic instance): a tap's channels are one or a
+//   few loads (float2 for even C) and the taps stay in registers
+//   (warp_tap.cuh);
+// - the mask written as the bytes of a torch.bool tensor: no second
+//   kernel;
+// - the TV-L1 entry reads u1 and u2 straight from the solver's (6, H, W)
+//   state and writes the (4, H, W) constants {i1wx, i1wy, i1wx^2 +
+//   i1wy^2, i1w - i1wx u1 - i1wy u2 - i0} from the same launch, each in
+//   the order and rounding of the eager PyTorch composition it replaced
+//   (12 launches and 0.198 ms of device time a 1080x1920 warp stage).
+//
+// Arithmetic: K4's sampler (warp_tap.cuh), in the order and with the
+// bounds test of K2's (bicubic.cuh): NaN flow stays invalid; an occluded
+// pixel is invalid.
 #include <cstdint>
 #include <cuda_runtime.h>
 
-#include "bicubic.cuh"
+#include "warp_tap.cuh"
 
 namespace {
 
-constexpr int kMaxC = 8;
+// A block: kTY rows of 32 threads on consecutive x, each thread kPY pixel
+// rows kTY apart, so a tile of 32 x 8 output pixels.
+constexpr int kTX = 32, kTY = 4, kPY = 2;
+constexpr int kTileW = kTX, kTileH = kTY * kPY;
 
-__global__ void warp_kernel(const float* __restrict__ im,
-                            const float* __restrict__ flow,
-                            const float* __restrict__ occl,
-                            float* __restrict__ out,
-                            uint8_t* __restrict__ valid, int h, int w, int c) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= h * w) return;
-  const int y = idx / w, x = idx - y * w;
-  const float cx = (float)x + flow[2 * idx];
-  const float cy = (float)y + flow[2 * idx + 1];
-  float v[kMaxC];
-  bool ok = bnlk_bicubic_at(im, h, w, c, cx, cy, v);
-  if (occl != nullptr && occl[idx] != 0.0f) ok = false;
-  for (int ch = 0; ch < c; ++ch) out[(size_t)idx * c + ch] = ok ? v[ch] : 0.0f;
-  valid[idx] = ok ? 1 : 0;
+// Blocks an SM should hold: for the main path's channel counts the 16 that
+// 128-thread blocks can (32 registers a thread), 4 for the rest, whose
+// taps need more registers.
+template <int C>
+constexpr int min_blocks() {
+  return C >= 1 && C <= 3 ? 16 : 4;
+}
+
+// kConsts: the TV-L1 entry (C == 3): flow from the planar state, the
+// constants written planar; else the warp: interleaved flow in, out and
+// the bool mask written.
+template <int C, bool kConsts>
+__global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
+    warp_tile_kernel(const float* __restrict__ im, const float* __restrict__ flow,
+                     const float* __restrict__ aux, float* __restrict__ out,
+                     uint8_t* __restrict__ valid, int h, int w, int c_rt) {
+  constexpr int CA = C > 0 ? C : kK4MaxC;
+  const int c = C > 0 ? C : c_rt;
+  const int x = blockIdx.x * kTileW + threadIdx.x;
+  const int y0 = blockIdx.y * kTileH + threadIdx.y;
+  const size_t hw = (size_t)h * w;
+  const auto taps = k4_global_taps<C, CA>(im, w, c);
+#pragma unroll
+  for (int q = 0; q < kPY; ++q) {
+    const int y = y0 + q * kTY;
+    if (y >= h || x >= w) continue;
+    const size_t idx = (size_t)y * w + x;
+    float u, v;
+    if constexpr (kConsts) {
+      u = flow[idx];
+      v = flow[hw + idx];
+    } else {
+      const float2 f = __ldg(reinterpret_cast<const float2*>(flow) + idx);
+      u = f.x;
+      v = f.y;
+    }
+    const bool live = kConsts || aux == nullptr || aux[idx] == 0.0f;
+    float res[CA];
+    const bool ok = k4_sample<C, CA>((float)x + u, (float)y + v, h, w, c, live, taps, res);
+    if constexpr (kConsts) {
+      // the eager composition's order and rounding, no contraction
+      const float gx = res[1], gy = res[2];
+      out[idx] = gx;
+      out[hw + idx] = gy;
+      out[2 * hw + idx] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
+      out[3 * hw + idx] = __fsub_rn(
+          __fsub_rn(__fsub_rn(res[0], __fmul_rn(gx, u)), __fmul_rn(gy, v)), aux[idx]);
+    } else {
+      float* o = out + idx * c;
+      if constexpr (C > 0 && C % 2 == 0) {
+#pragma unroll
+        for (int ch = 0; ch < C; ch += 2)
+          *reinterpret_cast<float2*>(o + ch) = make_float2(res[ch], res[ch + 1]);
+      } else {
+#pragma unroll
+        for (int ch = 0; ch < CA; ++ch)
+          if (C > 0 || ch < c) o[ch] = res[ch];
+      }
+      valid[idx] = ok ? 1 : 0;
+    }
+  }
+}
+
+template <int C, bool kConsts>
+int launch(const float* im, const float* flow, const float* aux, float* out,
+           uint8_t* valid, int h, int w, int c, cudaStream_t stream) {
+  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+  warp_tile_kernel<C, kConsts><<<grid, dim3(kTX, kTY), 0, stream>>>(
+      im, flow, aux, out, valid, h, w, c);
+  return (int)cudaGetLastError();
+}
+
+// A frame the grid covers (at most 65535 tile rows), and the 8-byte
+// alignment of the float2 reads.
+bool bad_args(const void* im, const void* flow, int h, int w) {
+  return h < 1 || w < 1 || (h + kTileH - 1) / kTileH > 65535 ||
+         ((uintptr_t)im & 7) || ((uintptr_t)flow & 7);
 }
 
 }  // namespace
 
+// im (H, W, C) interleaved, flow (H, W, 2), occl (H, W) or null; writes
+// out (H, W, C) and valid (H, W) bytes 0/1.
 extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
-                         void* out, void* valid, int h, int w, int c,
-                         void* stream) {
-  if (c < 1 || c > kMaxC) return (int)cudaErrorInvalidValue;
-  const int n = h * w, threads = 256;
-  warp_kernel<<<(n + threads - 1) / threads, threads, 0,
-                (cudaStream_t)stream>>>(
-      (const float*)im, (const float*)flow, (const float*)occl, (float*)out,
-      (uint8_t*)valid, h, w, c);
-  return (int)cudaGetLastError();
+                         void* out, void* valid, int h, int w, int c, void* stream) {
+  if (c < 1 || c > kK4MaxC || bad_args(im, flow, h, w)) return (int)cudaErrorInvalidValue;
+  const auto* i = (const float*)im;
+  const auto* f = (const float*)flow;
+  const auto* o = (const float*)occl;
+  auto* r = (float*)out;
+  auto* v = (uint8_t*)valid;
+  auto s = (cudaStream_t)stream;
+  switch (c) {
+    case 1: return launch<1, false>(i, f, o, r, v, h, w, c, s);
+    case 2: return launch<2, false>(i, f, o, r, v, h, w, c, s);
+    case 3: return launch<3, false>(i, f, o, r, v, h, w, c, s);
+    case 6: return launch<6, false>(i, f, o, r, v, h, w, c, s);
+    default: return launch<0, false>(i, f, o, r, v, h, w, c, s);
+  }
+}
+
+// i1s (H, W, 3) = (I1, I1x, I1y), state (6, H, W) whose planes 0 and 1
+// are u1 and u2, i0 (H, W); writes consts (4, H, W).
+extern "C" int bnlk_warp_tvl1_consts(const void* i1s, const void* state,
+                                     const void* i0, void* consts, int h, int w,
+                                     void* stream) {
+  if (bad_args(i1s, state, h, w)) return (int)cudaErrorInvalidValue;
+  return launch<3, true>((const float*)i1s, (const float*)state, (const float*)i0,
+                         (float*)consts, nullptr, h, w, 3, (cudaStream_t)stream);
 }

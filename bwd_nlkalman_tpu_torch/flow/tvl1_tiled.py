@@ -4,8 +4,10 @@ Port of ``bwd_nlkalman_tpu.flow.tvl1_pallas``: the solver the JAX package
 takes for a level beyond K2's plan (``fused_level_supported``), such as
 the 1080x1920 level of a full-resolution (fscale=0) flow. The warp and
 the constants run outside the kernel, once per warp stage
-(tvl1_pallas.py:269-285): K4 warps (I1, I1x, I1y) along u, then grad =
-|grad I1w|^2 and rho_c elementwise. The iterations run in blocks of
+(tvl1_pallas.py:269-285): (I1, I1x, I1y) warped along u, then grad =
+|grad I1w|^2 and rho_c, :func:`tvl1_stage_consts`; on CUDA tensors that is
+one launch of K4's TV-L1 entry, which reads u from the state and writes
+the four constant planes. The iterations run in blocks of
 ``K_ITERS``: on CUDA tensors a warp stage's blocks, stopping rule
 included, are one launch of the hand-written kernel K3
 (``tvl1_block_cuda.py``), with no host read; on CPU tensors
@@ -34,6 +36,7 @@ import torch
 from .._dispatch import use_kernel
 from ..ops.grad import centered_gradient, divergence, forward_gradient
 from ..ops.warp import warp_bicubic_zero_multi
+from ..ops.warp_cuda import warp_tvl1_consts_cuda
 from .tvl1_block_cuda import tvl1_block_cuda, tvl1_stage_cuda
 
 GRAD_IS_ZERO = 1e-10  # tvl1flow_lib.c:26
@@ -105,14 +108,36 @@ def tvl1_stage_plain(state, consts, k_iters, max_iters, epsilon, tau=0.25,
     return state, blocks
 
 
+def tvl1_stage_consts_plain(i1s, state, i0):
+    """Plain version of K4's TV-L1 entry: the (4, H, W) constants {i1wx,
+    i1wy, grad, rho_c} of a warp stage (tvl1_pallas.py:272-275) from i1s
+    (H, W, 3) = (I1, I1x, I1y), the (6, H, W) state whose first planes are
+    u1 and u2, and i0 (H, W). Where a tap leaves the frame the three
+    samples are 0, so there rho_c = -i0."""
+    u1, u2 = state[0], state[1]
+    wrp = warp_bicubic_zero_multi(i1s, u1, u2, engine="plain")
+    i1w, i1wx, i1wy = wrp.unbind(-1)
+    return torch.stack([i1wx, i1wy, i1wx * i1wx + i1wy * i1wy,
+                        i1w - i1wx * u1 - i1wy * u2 - i0])
+
+
+def tvl1_stage_consts(i1s, state, i0, engine: str = "auto"):
+    """K4's TV-L1 entry on CUDA tensors, its plain version on CPU tensors.
+
+    ``engine="plain"`` runs the plain version on any device."""
+    if use_kernel(i0, engine):
+        return warp_tvl1_consts_cuda(i1s, state, i0)
+    return tvl1_stage_consts_plain(i1s, state, i0)
+
+
 def tvl1_single_scale_tiled(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
                             nwarps=5, epsilon=0.01, max_iters=300,
                             engine: str = "auto"):
     """One TV-L1 level (tvl1_single_scale_pallas, tvl1_pallas.py:240).
 
     i0, i1: (H, W) float32; u_init: (H, W, 2). Returns (H, W, 2). On CUDA
-    tensors no host sync: each warp stage is K4's warp, the constants and
-    one launch of K3."""
+    tensors no host sync: each warp stage is two launches, K4's TV-L1
+    entry (the warp and the constants) and K3."""
     h, w = i0.shape
     i1x, i1y = centered_gradient(i1)
     i1s = torch.stack([i1, i1x, i1y], dim=-1)
@@ -120,11 +145,7 @@ def tvl1_single_scale_tiled(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
     state = torch.cat([u_init.permute(2, 0, 1).to(torch.float32),
                        i0.new_zeros((4, h, w))])
     for _ in range(nwarps):
-        u1, u2 = state[0], state[1]
-        wrp = warp_bicubic_zero_multi(i1s, u1, u2, engine=engine)
-        i1w, i1wx, i1wy = wrp.unbind(-1)
-        consts = torch.stack([i1wx, i1wy, i1wx * i1wx + i1wy * i1wy,
-                              i1w - i1wx * u1 - i1wy * u2 - i0])
+        consts = tvl1_stage_consts(i1s, state, i0, engine)
         stage = tvl1_stage_cuda if kernel else tvl1_stage_plain
         state = stage(state, consts, K_ITERS, max_iters, epsilon, tau, lambda_,
                       theta)[0]

@@ -71,12 +71,9 @@ def cases(k2_level, k3_block, k3_level):
     kw = dict(lambda_=0.25, k_check=8, max_iters=300)
     zero = h0.new_zeros(h0.shape + (2,))
     warm = k2_level(h0, h1, zero, nwarps=5, **kw)
-    i1x, i1y = tvl1_tiled.centered_gradient(b)
-    wrp = tvl1_tiled.warp_bicubic_zero_multi(
-        torch.stack([b, i1x, i1y], -1), torch.zeros_like(a), torch.zeros_like(a))
-    ix, iy = wrp[..., 1], wrp[..., 2]
-    consts = torch.stack([ix, iy, ix * ix + iy * iy, wrp[..., 0] - a]).contiguous()
     state = a.new_zeros((6,) + a.shape)
+    consts = tvl1_tiled.tvl1_stage_consts(
+        torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1), state, a)
     u0 = a.new_zeros(a.shape + (2,))
     return {
         "k2_cold_540x960": lambda: k2_level(h0, h1, zero, nwarps=5, **kw),

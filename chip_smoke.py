@@ -15,15 +15,22 @@ arguments, one GPU). Phases, each reported on its own line:
    3-channel frame, the 961-offset window) and at the slices' shapes,
    with the tolerance stated beside it; then each kernel's time against
    its plain version's and the least time the card could take for the
-   same work (its bound), and K1's device time per stage from
-   torch.profiler; K2's and K3's levels must run as many iterations /
-   blocks as their plain versions, and run with no host sync (torch's
-   sync debug mode set to "error"); the counts are read once after;
+   same work (its bound): each kernel's time as CUDA-event ms per call
+   and as torch.profiler's device ms of every kernel the call launches,
+   and K1's device time per stage; K2's and K3's levels must run as many
+   iterations / blocks as their plain versions, and run with no host sync
+   (torch's sync debug mode set to "error"); the counts are read once
+   after; K4 at every channel instance of the main path, with a band of
+   flow hundreds of pixels wide, timed along the flow the main path
+   computes for the slices' scene with a smooth and a noisy flow beside
+   it, its TV-L1 entry at 1080x1920 and, on a line of its own,
+   ``grid_sample``'s bicubic as a yardstick;
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
    denoise, and K1, K2 and K4 must have launched during that run; then
-   one more run under torch.profiler: device busy time, idle share and
-   the five kernels that take the most device time;
+   one more run under torch.profiler: device busy time, idle share, the
+   five kernels that take the most device time, and each of K1-K4's
+   device time and kernel count;
 5. slice 2: ``NLKalmanDenoiser`` with full-resolution flow (fscale=0) on
    3 frames of 1080p gray; the 1080x1920 flow level runs K3, so K1, K2,
    K3 and K4 must all have launched; then a profiled run as in phase 4;
@@ -44,6 +51,7 @@ failure raises and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import subprocess
@@ -106,6 +114,18 @@ def timed_pair(kernel_fn, plain_fn, reps_k, reps_p):
     k2 = cuda_ms(kernel_fn, reps_k)
     p2 = cuda_ms(plain_fn, reps_p)
     return (k1 + k2) / 2, (p1 + p2) / 2
+
+
+def device_ms(fn, reps):
+    """torch.profiler's device ms per call of every kernel ``fn`` launches;
+    None where the profiler saw no device time."""
+    from bwd_nlkalman_tpu_torch.tools.warp_bench import per_call
+
+    return per_call(fn, reps)[2]
+
+
+def fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f} ms"
 
 
 def check(ok, msg: str) -> None:
@@ -205,7 +225,7 @@ def phase_build():
 
 
 PARITY = {}     # kernel id -> largest abs error over its checked cases
-TIMES = {}      # kernel id -> (kernel ms, plain ms)
+TIMES = {}      # kernel id -> (kernel event ms, plain event ms, kernel device ms)
 BOUNDS = {}     # kernel id -> (least ms, "bytes" or "operations") of the timed call
 
 
@@ -282,16 +302,18 @@ def phase_k1(smi):
         if name in ("flt1", "smo1"):
             k_ms, p_ms = timed_pair(lambda: dense_pass_cuda(*args),
                                     lambda: dense_pass_v2(*args), 5, 1)
+            d_ms = device_ms(lambda: dense_pass_cuda(*args), 3)
             b_ms, b_by = bound(*k1_work(cur, valid, args[5], mode, has_prev, has_basic))
-            log(f"[3 time] K1 {mode} 1080p gray: kernel {k_ms:.2f} ms, plain "
-                f"{p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}) ({smi})")
+            log(f"[3 time] K1 {mode} 1080p gray: kernel {k_ms:.2f} ms between events, "
+                f"device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}) "
+                f"({smi})")
             st = stage_ms(lambda: dense_pass_cuda(*args), 3)
             log(f"[3 stages] K1 {name} 1080p gray, device ms per pass by kernel "
                 "(torch.profiler, 3 passes): " + (
                     ", ".join(f"{k} {v:.3f}" for k, v in st.items()) if st
                     else "not measured") + f" ({smi})")
             if mode == "filter":
-                TIMES["K1"] = (k_ms, p_ms)
+                TIMES["K1"] = (k_ms, p_ms, d_ms)
                 BOUNDS["K1"] = (b_ms, b_by)
         got, wq = pass_with_weights(*args)
         want = dense_pass_v2(*args)
@@ -344,6 +366,7 @@ def phase_k2(smi):
     kw = dict(lambda_=0.25, nwarps=5, k_check=8, max_iters=300)
     k_ms, p_ms = timed_pair(lambda: tvl1_level_cuda(a, b, u0, **kw),
                             lambda: tvl1_level_plain(a, b, u0, **kw), 3, 1)
+    d_ms = device_ms(lambda: tvl1_level_cuda(a, b, u0, **kw), 3)
     ITERATIONS.reset()
     got = no_host_sync(lambda: tvl1_level_cuda(a, b, u0, **kw))
     iters = ITERATIONS.count          # the one host read of the level
@@ -360,8 +383,8 @@ def phase_k2(smi):
     b_ms, b_by = bound(iters * npx * K2_FLOPS_ITER + 5 * npx * K2_FLOPS_WARP, 24 * npx)
     BOUNDS["K2"] = (b_ms, b_by)
     log(f"[3 time] K2 level {a.shape[0]}x{a.shape[1]} nwarps=5: kernel "
-        f"{k_ms:.2f} ms, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}; "
-        f"{iters} iterations) ({smi})")
+        f"{k_ms:.2f} ms between events, device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}; {iters} iterations) ({smi})")
     log(f"[3 counts] K2 level {a.shape[0]}x{a.shape[1]}: iterations kernel {iters}, "
         f"plain {len(plain_iters)}; host reads in the level 0 (sync debug mode "
         f"'error'), after it 1 (the iteration counter)")
@@ -370,7 +393,7 @@ def phase_k2(smi):
         f"{err:.3e} (<= {K2_LEVEL_MAX:g}), mean EPE {epe:.2e} px (<= {K2_LEVEL_EPE:g})")
     check(err <= K2_LEVEL_MAX, f"K2 540x960 level max abs err {err}")
     check(epe <= K2_LEVEL_EPE, f"K2 540x960 level mean EPE {epe} px")
-    TIMES["K2"] = (k_ms, p_ms)
+    TIMES["K2"] = (k_ms, p_ms, d_ms)
 
 
 def phase_k3(smi):
@@ -436,78 +459,138 @@ def phase_k3(smi):
     check(epe <= K3_LEVEL_EPE, f"K3 1080x1920 level mean EPE {epe} px")
 
     # one block at that level, from its first warp stage's constants
-    i1x, i1y = tvl1_tiled.centered_gradient(b)
-    wrp = tvl1_tiled.warp_bicubic_zero_multi(torch.stack([b, i1x, i1y], -1),
-                                             u0[..., 0], u0[..., 1])
-    ix, iy = wrp[..., 1], wrp[..., 2]
-    consts = torch.stack([ix, iy, ix * ix + iy * iy, wrp[..., 0] - a]).contiguous()
+    i1s = torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1)
     state = a.new_zeros((6,) + a.shape)
+    consts = tvl1_tiled.tvl1_stage_consts(i1s, state, a)
     k_ms, p_ms = timed_pair(lambda: tvl1_block_cuda(state, consts, 24),
                             lambda: tvl1_tiled.tvl1_block_plain(state, consts, 24),
                             10, 2)
+    d_ms = device_ms(lambda: tvl1_block_cuda(state, consts, 24), 10)
     npx = a.numel()
     BOUNDS["K3"] = bound(24 * npx * K3_FLOPS_ITER + 6 * npx, (6 + 4 + 6) * 4 * npx)
-    TIMES["K3"] = (k_ms, p_ms)
+    TIMES["K3"] = (k_ms, p_ms, d_ms)
     log(f"[3 time] K3 block of 24 iterations at {a.shape[0]}x{a.shape[1]}: kernel {k_ms:.3f} ms "
-        f"({1e3 * k_ms / 24:.1f} us per iteration; the level above {lk_ms:.2f} ms), plain "
-        f"{p_ms:.3f} ms, bound {BOUNDS['K3'][0]:.4f} ms ({BOUNDS['K3'][1]}) ({smi})")
-
-
-def _warp_flow(rng, h, w):
-    f = 1.5 * rng.standard_normal((h, w, 2)).astype(np.float32)
-    f[: max(1, h // 5), :, 1] -= 9.0
-    f[:, -max(1, w // 6):, 0] += 12.5
-    return f
+        f"between events ({1e3 * k_ms / 24:.1f} us per iteration; the level above "
+        f"{lk_ms:.2f} ms), device {fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound "
+        f"{BOUNDS['K3'][0]:.4f} ms ({BOUNDS['K3'][1]}) ({smi})")
 
 
 def phase_k4(smi):
     import torch
+    import torch.nn.functional as F
+    from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
     from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp_plain
-    from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda
+    from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda, warp_tvl1_consts_cuda
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
+    from bwd_nlkalman_tpu_torch.tools.warp_bench import noisy_flow, smooth_flow, tvl1_flows
 
     rng = np.random.default_rng(3)
     worst = 0.0
-    for c in (1, 2, 3):
-        h, w = 32, 40
-        im = torch.from_numpy(rng.uniform(0, 255, (h, w, c)).astype(np.float32)).cuda()
-        flow = torch.from_numpy(_warp_flow(rng, h, w)).cuda()
-        occl = torch.from_numpy(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0)
-                                .astype(np.float32)).cuda()
-        for oc in (None, occl):
-            got, gv = bicubic_warp_cuda(im, flow, oc)
-            want, wv = bicubic_warp_plain(im, flow, oc)
-            torch.cuda.synchronize()
-            err = max_err(got, want)
-            worst = max(worst, err)
-            log(f"[3 parity] K4 {h}x{w} C={c} occl={oc is not None}: max abs err "
-                f"{err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} identical="
-                f"{bool(torch.equal(gv, wv))}")
-            check(torch.equal(gv, wv), "K4 validity masks differ")
-            check(0 < int(gv.sum()) < h * w, "K4 case is all valid or all invalid")
-            assert_close("K4", got, want, rtol=0.0, atol=1e-3)
-    PARITY["K4"] = worst
+    # every channel instance of the main path at the JAX suite's size, a
+    # ragged frame, and a quarter-size frame with a band of wide flow
+    for c in (1, 2, 3, 6):
+        for h, w, band in ((32, 40, False), (37, 53, False), (270, 480, True)):
+            im = torch.from_numpy(rng.uniform(0, 255, (h, w, c)).astype(np.float32)).cuda()
+            flow = torch.from_numpy(noisy_flow(rng, h, w, band)).cuda()
+            occl = torch.from_numpy(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0)
+                                    .astype(np.float32)).cuda()
+            for oc in (None, occl):
+                got, gv = bicubic_warp_cuda(im, flow, oc)
+                want, wv = bicubic_warp_plain(im, flow, oc)
+                err = max_err(got, want)
+                worst = max(worst, err)
+                log(f"[3 parity] K4 {h}x{w} C={c} occl={oc is not None} band={band}: max abs "
+                    f"err {err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} identical="
+                    f"{bool(torch.equal(gv, wv))}")
+                check(torch.equal(gv, wv), "K4 validity masks differ")
+                check(0 < int(gv.sum()) < h * w, "K4 case is all valid or all invalid")
+                assert_close("K4", got, want, rtol=0.0, atol=1e-3)
 
+    # the slice's warps at 1080p: C=2 (the filter's flt1|flt2) and C=1 with
+    # an occlusion mask (the smoother's), along the flow the main path
+    # computes for the slices' scene, a smooth flow and a noisy one
     h, w = FULL
     im = torch.from_numpy(rng.uniform(0, 255, (h, w, 2)).astype(np.float32)).cuda()
-    flow = torch.from_numpy(_warp_flow(rng, h, w)).cuda()
-    k_ms, p_ms = timed_pair(lambda: bicubic_warp_cuda(im, flow),
-                            lambda: bicubic_warp_plain(im, flow), 20, 5)
-    BOUNDS["K4"] = bound(h * w * 2 * K4_FLOPS_CH, h * w * (4 * 2 + 8 + 4 * 2 + 1))
-    log(f"[3 time] K4 1080p C=2: kernel {k_ms:.3f} ms, plain {p_ms:.3f} ms, bound "
-        f"{BOUNDS['K4'][0]:.4f} ms ({BOUNDS['K4'][1]}) ({smi})")
-    TIMES["K4"] = (k_ms, p_ms)
-    # the slice's warps: C=2 (the filter's flt1|flt2) and C=1 with an
-    # occlusion mask (the smoother's)
     occl = torch.from_numpy(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0)
                             .astype(np.float32)).cuda()
-    for c, oc in ((2, None), (1, occl)):
-        got, gv = bicubic_warp_cuda(im[..., :c].contiguous(), flow, oc)
-        want, wv = bicubic_warp_plain(im[..., :c].contiguous(), flow, oc)
-        log(f"[3 parity] K4 1080p C={c} occl={oc is not None}: max abs err "
-            f"{max_err(got, want):.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} "
+    flows = {"the main path's TV-L1": tvl1_flows()[0],
+             "a smooth": torch.from_numpy(smooth_flow(h, w)).cuda(),
+             "a noisy": torch.from_numpy(noisy_flow(rng, h, w)).cuda()}
+    for (c, oc), (kind, fl) in itertools.product(((2, None), (1, occl)), flows.items()):
+        got, gv = bicubic_warp_cuda(im[..., :c].contiguous(), fl, oc)
+        want, wv = bicubic_warp_plain(im[..., :c].contiguous(), fl, oc)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        log(f"[3 parity] K4 1080p C={c} occl={oc is not None} along {kind} flow: max abs "
+            f"err {err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} "
             f"identical={bool(torch.equal(gv, wv))}")
         check(torch.equal(gv, wv), "K4 1080p validity masks differ")
         assert_close("K4 1080p", got, want, rtol=0.0, atol=1e-3)
+    # the timed call: the filter's warp along the main path's flow
+    flow = flows["the main path's TV-L1"]
+    k_ms, p_ms = timed_pair(lambda: bicubic_warp_cuda(im, flow),
+                            lambda: bicubic_warp_plain(im, flow), 20, 5)
+    d_ms = device_ms(lambda: bicubic_warp_cuda(im, flow), 20)
+    BOUNDS["K4"] = bound(h * w * 2 * K4_FLOPS_CH, h * w * (4 * 2 + 8 + 4 * 2 + 1))
+    TIMES["K4"] = (k_ms, p_ms, d_ms)
+    beside = {kind: (cuda_ms(lambda: bicubic_warp_cuda(im, fl), 20),
+                     device_ms(lambda: bicubic_warp_cuda(im, fl), 20))
+              for kind, fl in flows.items() if kind != "the main path's TV-L1"}
+    log(f"[3 time] K4 1080p C=2 along the main path's TV-L1 flow: kernel {k_ms:.4f} ms "
+        f"between events, device {fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound "
+        f"{BOUNDS['K4'][0]:.4f} ms ({BOUNDS['K4'][1]}); " + "; ".join(
+            f"along {kind} flow {e:.4f} ms between events, device {fmt_ms(d)}"
+            for kind, (e, d) in beside.items()) + f" ({smi})")
+    # the yardstick: the same amount of work in PyTorch's own bicubic
+    # sampler, which is another function (a=-0.75, other borders)
+    planar = im.permute(2, 0, 1)[None].contiguous()
+    xs = torch.arange(w, device="cuda", dtype=torch.float32)
+    ys = torch.arange(h, device="cuda", dtype=torch.float32)
+    grid = torch.stack([2 * (xs[None, :] + flow[..., 0]) / (w - 1) - 1,
+                        2 * (ys[:, None] + flow[..., 1]) / (h - 1) - 1], -1)[None]
+
+    def yardstick():
+        return F.grid_sample(planar, grid, mode="bicubic", padding_mode="zeros",
+                             align_corners=True)
+
+    g_ms = cuda_ms(yardstick, 20)
+    log(f"[3 yardstick] grid_sample(mode='bicubic', padding_mode='zeros', align_corners="
+        f"True), another function that the port never calls, on the same 1080p C=2 "
+        f"input in its planar layout: {g_ms:.4f} ms between events, device "
+        f"{fmt_ms(device_ms(yardstick, 20))} ({smi})")
+    del im, planar, grid, got, want, flows, flow
+
+    # the TV-L1 entry at the slice's 1080x1920 level: (I1, I1x, I1y) of a
+    # full-resolution pair warped along a smooth flow that leaves the frame
+    # at the borders, to the four constant planes. Bars: the warped planes
+    # to 1e-3 as every warp, grad and rho_c to 2e-2 (products with the
+    # gradients and the flow), exactly 0 and -i0 out of the frame.
+    _, noisy = make_clip(*FULL, 2, SIGMA)
+    nz = torch.from_numpy(noisy).cuda()
+    a, b = tvl1._prep_pair(nz[1, ..., 0], nz[0, ..., 0])
+    i1s = torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1)
+    state = torch.zeros((6, h, w), device="cuda")
+    state[:2] = torch.from_numpy(smooth_flow(h, w)).cuda().permute(2, 0, 1)
+    got = warp_tvl1_consts_cuda(i1s, state, a)
+    want = tvl1_tiled.tvl1_stage_consts_plain(i1s, state, a)
+    _, valid = bicubic_warp_plain(i1s, state[:2].permute(1, 2, 0).contiguous())
+    out = ~valid
+    e_w, e_c = max_err(got[:2], want[:2]), max_err(got[2:], want[2:])
+    k_ms, p_ms = timed_pair(lambda: warp_tvl1_consts_cuda(i1s, state, a),
+                            lambda: tvl1_tiled.tvl1_stage_consts_plain(i1s, state, a), 20, 5)
+    d_ms = device_ms(lambda: warp_tvl1_consts_cuda(i1s, state, a), 20)
+    b_ms, b_by = bound(h * w * (3 * K4_FLOPS_CH + 7), 40 * h * w)
+    log(f"[3 parity] K4 TV-L1 entry {h}x{w}: max abs err i1wx, i1wy {e_w:.3e} (atol 1e-3), "
+        f"grad, rho_c {e_c:.3e} (atol 2e-2); out of the frame {int(out.sum())} pixels, "
+        f"exactly 0 / -i0: {bool(not got[:3, out].any() and torch.equal(got[3, out], -a[out]))}")
+    assert_close("K4 TV-L1 entry", got[:2], want[:2], rtol=0.0, atol=1e-3)
+    assert_close("K4 TV-L1 entry", got[2:], want[2:], rtol=0.0, atol=2e-2)
+    check(bool(out.any()) and not got[:3, out].any() and torch.equal(got[3, out], -a[out]),
+          "K4 TV-L1 entry out of the frame is not 0 / -i0")
+    log(f"[3 time] K4 TV-L1 entry {h}x{w} (a warp stage's constants): kernel {k_ms:.4f} ms "
+        f"between events, device {fmt_ms(d_ms)}, plain {p_ms:.3f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}; 40 B a pixel) ({smi})")
+    PARITY["K4"] = max(worst, e_w)
 
 
 def phase_p(smi):
@@ -530,10 +613,12 @@ def phase_p(smi):
     a = vp.probe_input(h, w, "cuda")
     k_ms, p_ms = timed_pair(lambda: vp.probe_cuda(a, 8, "fma", torch.float32),
                             lambda: vp.probe_plain(a, 8, "fma", torch.float32), 20, 1)
+    d_ms = device_ms(lambda: vp.probe_cuda(a, 8, "fma", torch.float32), 20)
     BOUNDS["P"] = bound(vp.flops(h, w, 8, "fma"), 8 * h * w)
-    TIMES["P"] = (k_ms, p_ms)
-    log(f"[3 time] P fma8 {h}x{w} K={vp.K} GRID={vp.GRID}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.2f} ms, bound {BOUNDS['P'][0]:.4f} ms ({BOUNDS['P'][1]}) ({smi})")
+    TIMES["P"] = (k_ms, p_ms, d_ms)
+    log(f"[3 time] P fma8 {h}x{w} K={vp.K} GRID={vp.GRID}: kernel {k_ms:.4f} ms between "
+        f"events, device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, bound {BOUNDS['P'][0]:.4f} ms "
+        f"({BOUNDS['P'][1]}) ({smi})")
 
 
 def reset_counters():
@@ -587,12 +672,14 @@ def phase_slice(smi):
 
 def profile_slice(run, tag, smi):
     """One more run under torch.profiler: device busy time (the union of
-    the device activities), the idle share of the run's host wall time and
-    the five kernels that take the most device time."""
+    the device activities), the idle share of the run's host wall time, the
+    five kernels that take the most device time, and the device time and
+    kernel count of each of K1-K4 (``KERNEL_NAMES``)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from bwd_nlkalman_tpu_torch.tools.k1_bench import busy_ms, device_events, kernel_ms
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import (busy_ms, device_events, kernel_ms,
+                                                       short_name)
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -610,6 +697,11 @@ def profile_slice(run, tag, smi):
     log(f"[{tag}] device busy {busy:.1f} ms of {wall:.1f} ms wall under the profiler, "
         f"idle {100 * (1 - busy / wall):.1f}%; top kernels by device time: " +
         ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)" for k, v in top) + f" ({smi})")
+    ids = {k: [short_name(n).startswith(KERNEL_NAMES[k]) for n, _, _ in ev]
+           for k in KERNEL_NAMES}
+    log(f"[{tag}] device time by kernel: " + ", ".join(
+        f"{k} {sum(t1 - t0 for (_, t0, t1), m in zip(ev, mine) if m) / 1e3:.3f} ms in "
+        f"{sum(mine)} kernels" for k, mine in ids.items()) + f" ({smi})")
 
 
 def phase_slice_fullres(smi):
@@ -703,6 +795,9 @@ def phase_slice_vs_plain():
         check(d2 <= 0.05 and ds <= 0.05, "kernels and plain versions disagree")
 
 
+# the kernels of each, by the start of their names as torch.profiler shows them
+KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
+                "K2": ("level_kernel",), "K3": ("stage_kernel",), "K4": ("warp_tile_kernel",)}
 KERNELS = {
     "K1": ("nlk_pass", "bwd_nlkalman_tpu_torch/csrc/nlk_pass.cu",
            "bwd_nlkalman_tpu/core/engine_pallas.py:128"),
@@ -746,7 +841,8 @@ def main() -> int:
     log(json.dumps({"kernels": [
         {"name": KERNELS[k][0], "route": "cuda", "source": KERNELS[k][1],
          "replaces": KERNELS[k][2], "launches": launches[k],
-         "max_abs_err": PARITY[k], "ms": TIMES[k][0], "plain_ms": TIMES[k][1],
+         "max_abs_err": PARITY[k], "ms": TIMES[k][0], "device_ms": TIMES[k][2],
+         "plain_ms": TIMES[k][1],
          "bound_ms": BOUNDS[k][0], "bound_by": BOUNDS[k][1], "library_ms": None}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {

@@ -21,10 +21,12 @@ from bwd_nlkalman_tpu_torch.flow import tvl1_fused, tvl1_tiled
 from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import tvl1_block_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_cuda
 from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
+from bwd_nlkalman_tpu_torch.ops import warp_cuda
 from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp_plain
 from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda
 from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
 from bwd_nlkalman_tpu_torch.tools import vpu_probe
+from bwd_nlkalman_tpu_torch.tools.warp_bench import noisy_flow
 
 pytestmark = pytest.mark.cuda
 
@@ -42,18 +44,62 @@ def _t(a, dev):
     return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
 
 
-@pytest.mark.parametrize("c", [1, 2, 3])
-def test_warp_kernel_matches_plain(dev, c):
+@pytest.mark.parametrize("band", [False, True])
+@pytest.mark.parametrize("occl", [False, True])
+@pytest.mark.parametrize("h,w", [(1, 1), (3, 3), (17, 16), (32, 40), (37, 53), (270, 480)])
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 6, 8])
+def test_warp_kernel_matches_plain(dev, c, h, w, occl, band):
+    """K4 against its plain version: every channel instance (1, 2, 3, 6,
+    and the generic one at 5 and 8), frames with no valid pixel, ragged
+    tiles, occlusion, and a band shifted by hundreds of pixels."""
     rng = np.random.default_rng(c)
-    h, w = 32, 40
     im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
-    flow = 1.5 * rng.standard_normal((h, w, 2)).astype(np.float32)
-    flow[:6, :, 1] -= 9.0
-    flow = _t(flow, dev)
+    flow = _t(noisy_flow(rng, h, w, band), dev)
+    oc = _t(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0).astype(np.float32),
+            dev) if occl else None
+    out, valid = bicubic_warp_cuda(im, flow, oc)
+    ref, ref_valid = bicubic_warp_plain(im, flow, oc)
+    assert valid.dtype == torch.bool and torch.equal(valid, ref_valid)
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
+
+
+def test_warp_kernel_takes_unaligned_tensors(dev):
+    """Contiguous views whose data is 4 bytes off an 8-byte boundary."""
+    rng = np.random.default_rng(2)
+    h, w, c = 37, 53, 2
+    im = torch.empty(h * w * c + 1, device=dev)[1:].view(h, w, c)
+    im.copy_(_t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev))
+    flow = torch.empty(h * w * 2 + 1, device=dev)[1:].view(h, w, 2)
+    flow.copy_(_t(noisy_flow(rng, h, w, False), dev))
     out, valid = bicubic_warp_cuda(im, flow)
     ref, ref_valid = bicubic_warp_plain(im, flow)
     assert torch.equal(valid, ref_valid)
     torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("h,w", [(3, 3), (25, 41), (270, 480)])
+@pytest.mark.parametrize("band", [False, True])
+def test_warp_tvl1_consts_kernel_matches_plain(dev, h, w, band):
+    """K4's TV-L1 entry against ``tvl1_stage_consts_plain``: the warped
+    planes to 1e-3 as every warp, grad and rho_c to 2e-2 (products with
+    gradients and flow), and exactly 0 / -i0 out of the frame."""
+    rng = np.random.default_rng(9)
+    i0, i1 = _level_pair(dev, h, w)
+    i1x, i1y = tvl1_tiled.centered_gradient(i1)
+    i1s = torch.stack([i1, i1x, i1y], -1)
+    state = _t(rng.normal(0, 0.3, (6, h, w)).astype(np.float32), dev)
+    state[:2] = _t(np.moveaxis(noisy_flow(rng, h, w, band), -1, 0), dev)
+    warp_cuda.LAUNCHES.reset()
+    got = warp_cuda.warp_tvl1_consts_cuda(i1s, state, i0)
+    assert warp_cuda.LAUNCHES.count == 1
+    want = tvl1_tiled.tvl1_stage_consts_plain(i1s, state, i0)
+    torch.testing.assert_close(got[:2], want[:2], rtol=0.0, atol=1e-3)
+    torch.testing.assert_close(got[2:], want[2:], rtol=0.0, atol=2e-2)
+    _, valid = bicubic_warp_plain(i1s, state[:2].permute(1, 2, 0).contiguous())
+    out = ~valid
+    assert out.any()
+    assert not got[:3, out].any() and torch.equal(got[3, out], -i0[out])
+    assert torch.equal(tvl1_tiled.tvl1_stage_consts(i1s, state, i0), got)
 
 
 NLK_CASES = [

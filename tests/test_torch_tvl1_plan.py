@@ -206,12 +206,9 @@ def test_stage_plain_is_the_block_loop(rng, monkeypatch):
     base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
     base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
     i0, i1 = torch.from_numpy(base[4:4 + h, 4:4 + w]), torch.from_numpy(base[2:2 + h, 5:5 + w])
-    i1x, i1y = tvl1_tiled.centered_gradient(i1)
-    wrp = tvl1_tiled.warp_bicubic_zero_multi(torch.stack([i1, i1x, i1y], -1),
-                                             torch.zeros_like(i0), torch.zeros_like(i0))
-    ix, iy = wrp[..., 1], wrp[..., 2]
-    consts = torch.stack([ix, iy, ix * ix + iy * iy, wrp[..., 0] - i0])
     state = i0.new_zeros((6, h, w))
+    consts = tvl1_tiled.tvl1_stage_consts_plain(
+        torch.stack([i1, *tvl1_tiled.centered_gradient(i1)], -1), state, i0)
     calls = []
 
     def count(*args, **kw):
