@@ -12,23 +12,27 @@ by ``_build.py``:
 - P  the streaming-rate probe (``tools/vpu_probe.py``,     ``csrc/probe.cu``)
 
 Each kernel runs on CUDA tensors; on CPU tensors its plain PyTorch
-version runs instead. Entry points (``NLKalmanDenoiser``, the CLIs under
-``cli/``) run on the card unless asked for the CPU. This package imports
-neither JAX nor the JAX package.
+version runs instead. Entry points (``NLKalmanDenoiser``,
+``StreamingDenoiser``, ``MultiscaleDenoiser``, ``models.get_model``, the
+CLIs under ``cli/``) run on the card unless asked for the CPU. This
+package imports neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"
 
 from .params import FilterMode, NLKParams, default_params  # noqa: F401
-from .pipeline import FlowConfig, NLKalmanDenoiser, denoise_sequence  # noqa: F401
+from .pipeline import (FlowConfig, MultiscaleDenoiser, NLKalmanDenoiser,  # noqa: F401
+                       StreamingDenoiser, denoise_sequence)
 
 
 def kernel_counters():
-    """The launch counters of the ported kernels, by kernel id."""
+    """The launch counters of the ported kernels, by kernel id; "K4c9"
+    counts the K4 warps of 9 channels among K4's."""
     from .core.engine_cuda import LAUNCHES as k1
     from .flow.tvl1_block_cuda import LAUNCHES as k3
     from .flow.tvl1_cuda import LAUNCHES as k2
     from .ops.warp_cuda import LAUNCHES as k4
+    from .ops.warp_cuda import LAUNCHES_C9 as k4c9
     from .tools.vpu_probe import LAUNCHES as p
 
-    return {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "P": p}
+    return {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K4c9": k4c9, "P": p}

@@ -20,6 +20,22 @@ def check_engine(engine: str) -> None:
         raise ValueError(f"engine must be 'auto' or 'plain', got {engine!r}")
 
 
+def entry_device(device, who: str) -> torch.device:
+    """The device an entry point runs on: the card unless the caller asks
+    for the CPU. A card that is not there raises; nothing falls back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"{who}: no CUDA device; pass device='cpu' to run "
+                           "on the CPU")
+    return device
+
+
+def runs_kernels(device: torch.device, engine: str) -> bool:
+    """True where an entry point on ``device`` launches the kernels."""
+    check_engine(engine)
+    return engine == "auto" and device.type == "cuda"
+
+
 def use_kernel(x: torch.Tensor, engine: str) -> bool:
     """True where a wrapper launches its kernel: ``engine="auto"`` and a CUDA
     tensor. False for a CPU tensor or ``engine="plain"``. Raises for an

@@ -5,7 +5,9 @@ harness of nlkalman-seq-gt.sh): reads pattern%first..%last, runs
 ``NLKalmanDenoiser`` on ``--device`` (default ``cuda``), writes
 flt1-/flt2-/smo1-%03d.tif into the output folder plus a `measures` file
 when ground truth is given. ``--fscale 0`` (or an ``--opm`` string whose
-first field is 0) computes the flow at full resolution.
+first field is 0) computes the flow at full resolution. ``--smoother
+fsmo|lsmo`` runs the causal smoothers, ``--multiscale`` the multiscale
+pipeline (``MultiscaleDenoiser``, ``--pyramid dct|lz3``).
 
 Run as ``python -m bwd_nlkalman_tpu_torch.cli.nlkalman_seq``.
 """
@@ -21,13 +23,8 @@ import torch
 
 from ._common import device_arg
 from ..io import read_video, write_image
-from ..pipeline import (FlowConfig, NLKalmanDenoiser, add_noise_sequence,
-                        gt_measures, sequence_psnr)
-
-# options of the JAX command whose pipelines are not ported yet
-_NOT_PORTED = {"fsmo": "fsmo_sequence (pipeline/sequence.py)",
-               "lsmo": "lsmo_sequence (pipeline/sequence.py)",
-               "multiscale": "ms_denoise_sequence (pipeline/multiscale.py)"}
+from ..pipeline import (FlowConfig, MultiscaleDenoiser, NLKalmanDenoiser,
+                        add_noise_sequence, gt_measures, sequence_psnr)
 
 
 def main(argv=None):
@@ -42,14 +39,15 @@ def main(argv=None):
     ap.add_argument("--smoother", choices=["rts", "fsmo", "lsmo", "none"],
                     default="rts",
                     help="smoothing variant: rts = full backward pass "
-                    "(nlkalman-seq.sh), none = filtering only; fsmo and "
-                    "lsmo are not ported yet")
+                    "(nlkalman-seq.sh), fsmo = causal forward smoothing "
+                    "(nlkalman-fsmo-seq.sh), lsmo = lag-1 smoother "
+                    "(nlkalman-lsmo-seq.sh), none = filtering only")
     ap.add_argument("--multiscale", action="store_true",
-                    help="msnlkalman multiscale pipeline (not ported yet)")
+                    help="msnlkalman multiscale pipeline")
     ap.add_argument("--pyramid", choices=["dct", "lz3"], default="dct",
-                    help="multiscale pyramid (with --multiscale)")
-    ap.add_argument("--levels", type=int, default=None,
-                    help="pyramid levels (with --multiscale)")
+                    help="multiscale pyramid: dct (msnlkalman-seq.sh) or "
+                    "lz3 Lanczos-3 (msnlkalman-lz3-seq.sh)")
+    ap.add_argument("--levels", type=int, default=None, help="pyramid levels")
     ap.add_argument("--gt-pattern", default=None,
                     help="clean frame pattern: add noise here, report PSNR")
     ap.add_argument("--png-archive", action="store_true",
@@ -71,11 +69,6 @@ def main(argv=None):
     args = ap.parse_args(argv)
 
     smoother = "none" if args.no_smoothing else args.smoother
-    for flag, key in (("--multiscale", "multiscale" if args.multiscale else None),
-                      (f"--smoother {smoother}", smoother)):
-        if key in _NOT_PORTED:
-            ap.error(f"{flag} is not ported to this package yet: it needs "
-                     f"{_NOT_PORTED[key]}")
     cfg = FlowConfig(fscale=args.fscale, lambda_=args.flow_lambda,
                      occ_threshold=args.occ_threshold)
     scfg = None
@@ -102,9 +95,16 @@ def main(argv=None):
     else:
         noisy = read_video(args.sequence, args.first, args.last)
 
-    model = NLKalmanDenoiser(args.sigma, noisy.shape[1], noisy.shape[2], cfg,
-                             device=dev, smooth_flow_cfg=scfg,
-                             smoothing=smoother != "none")
+    h, w = noisy.shape[1:3]
+    if args.multiscale:
+        model = MultiscaleDenoiser(args.sigma, h, w, levels=args.levels,
+                                   pyramid=args.pyramid,
+                                   smoothing=smoother != "none", device=dev)
+    else:
+        # fsmo smooths along the filter's flow, so it ignores the
+        # smoothing direction's OPM triple, as the JAX command does
+        model = NLKalmanDenoiser(args.sigma, h, w, cfg, device=dev,
+                                 smooth_flow_cfg=scfg, smoother=smoother)
     flt1, flt2, smo1 = model(torch.from_numpy(noisy).to(dev))
 
     stacks = {"flt1": flt1.cpu().numpy(), "flt2": flt2.cpu().numpy()}

@@ -3,7 +3,10 @@
 The system has no learned weights: its parameters are the ``NLKParams``
 and the ``FlowConfig``, each package holding its own classes; its state
 is the forward scan's carry (flt1, flt2 and, with warm-started flow, the
-level-fscale flow).
+level-fscale flow), and a stream's recursion state. A stream's ``.npz``
+checkpoint has the same keys in both packages, so either's
+``load_state`` reads the other's file; :func:`streaming_from_jax` carries
+a live JAX stream across.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import torch
 
 from .params import NLKParams
 from .pipeline.sequence import FlowConfig
+from .pipeline.stream import StreamingDenoiser
 
 
 def params_from_jax(p) -> NLKParams:
@@ -40,3 +44,19 @@ def carry_from_numpy(flt1_prev, flt2_prev, u_fs, device):
             np.asarray(a, dtype=np.float32), device=device)
 
     return t(flt1_prev), t(flt2_prev), t(u_fs)
+
+
+def streaming_from_jax(sd, device="cuda", engine: str = "auto") -> StreamingDenoiser:
+    """The port's StreamingDenoiser with the parameters, smoother, flow
+    configuration and recursion state (frame index, flt1, flt2, smo and
+    the warm-start flow carry) of the JAX StreamingDenoiser ``sd``."""
+    out = StreamingDenoiser(sd.sigma, params_from_jax(sd.p1), params_from_jax(sd.p2),
+                            params_from_jax(sd.ps), sd.smoother,
+                            flow_config_from_jax(sd.flow_cfg), engine, device)
+    out.index = sd.index
+    for name in ("flt1", "flt2", "smo", "u_fs"):
+        val = getattr(sd, name)
+        if val is not None:
+            setattr(out, name, torch.tensor(np.asarray(val, dtype=np.float32),
+                                            device=out.device))
+    return out

@@ -27,7 +27,7 @@ from ..ops.bases import basis
 from ..ops.dct import _ortho_basis_kron_np, _ortho_basis_np, dct_image_all_patches
 from ..ops.windows import window_np
 from ..params import NLKParams
-from .engine_cuda import dense_pass_cuda
+from .engine_cuda import dense_pass_cuda, pass_radius
 
 _INF_BITS = int(np.float32(np.inf).view(np.int32))
 _ROWS_PER_BLOCK = 4   # site rows per block: bounds the window tensors
@@ -84,10 +84,7 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     f = ch * psz * psz
     sigma2 = sigma * sigma
     hh, ww = h - psz + 1, w - psz + 1
-    if mode == "filter":
-        rad = max(prms.search_sz_x, prms.search_sz_t)
-    else:
-        rad = prms.search_sz_t
+    rad = pass_radius(prms, mode)
     rad_t = prms.search_sz_t
     n_off1 = 2 * rad + 1
     centre = rad * n_off1 + rad

@@ -35,6 +35,33 @@ def _align16(n: int) -> int:
     return (n + 15) // 16 * 16
 
 
+def pass_radius(prms: NLKParams, mode: str) -> int:
+    """The search radius of a pass: a filter pass searches the larger of
+    its spatial and temporal radii, a smoother pass the temporal one."""
+    if mode == "filter":
+        return max(prms.search_sz_x, prms.search_sz_t)
+    return prms.search_sz_t
+
+
+def check_limits(psz: int, rad: int, c: int | None = None) -> None:
+    """Raise ValueError for a patch size, search radius or channel count
+    (None: not known yet) that K1 does not take, naming the limit."""
+    hint = "; engine='plain' runs the plain pass on the card instead"
+    if psz != 8:
+        raise ValueError(f"K1 supports patch_sz 8, got {psz}{hint}")
+    if not 0 <= rad <= MAX_RAD:
+        raise ValueError(f"K1 supports search radius <= {MAX_RAD}, got {rad}{hint}")
+    if c is not None and not 1 <= c <= 3:
+        raise ValueError(f"K1 supports 1..3 channels, got {c}{hint}")
+
+
+def check_params(passes, channels: int | None = None) -> None:
+    """:func:`check_limits` for every ``(NLKParams, mode)`` of ``passes``:
+    what an entry point that will run K1 checks before its first launch."""
+    for prms, mode in passes:
+        check_limits(prms.patch_sz, pass_radius(prms, mode), channels)
+
+
 def site_plan(c: int, rad: int, psz: int = 8) -> tuple[int, int]:
     """(sites per block, dynamic shared bytes) of K1's site kernel for
     ``c`` channels at search radius ``rad``: the layout of
@@ -44,13 +71,8 @@ def site_plan(c: int, rad: int, psz: int = 8) -> tuple[int, int]:
     after the distances, three 256-bin histograms per warp (then its
     member list); then each warp's own vector, candidate bits and flags.
     Takes the most sites per block, up to 8, whose block fits in 227 KB.
-    Raises for what K1 does not take."""
-    if psz != 8:
-        raise ValueError(f"K1 supports patch_sz 8, got {psz}")
-    if not 1 <= c <= 3:
-        raise ValueError(f"K1 supports 1..3 channels, got {c}")
-    if not 0 <= rad <= MAX_RAD:
-        raise ValueError(f"K1 supports search radius <= {MAX_RAD}, got {rad}")
+    Raises for what K1 does not take (:func:`check_limits`)."""
+    check_limits(psz, rad, c)
     f = c * psz * psz
     n_off = (2 * rad + 1) ** 2
     warp = _align16(4 * f) + _align16(4 * n_off) + _align16(n_off)
@@ -87,8 +109,7 @@ def pass_with_weights(cur, prev, prev_valid, basic, sigma: float,
         raise ValueError("dense_pass_cuda takes CUDA tensors")
     if prms.dista_lambda != 1.0 or prms.dista_th > 0.0:
         raise NotImplementedError("K1 runs the K-similar-patches selection only")
-    rad = max(prms.search_sz_x, prms.search_sz_t) if mode == "filter" \
-        else prms.search_sz_t
+    rad = pass_radius(prms, mode)
     sites, smem = site_plan(ch, rad, psz)
     n_off = (2 * rad + 1) ** 2
     check_tensor(cur, "cur", (h, w, ch), torch.float32, dev)

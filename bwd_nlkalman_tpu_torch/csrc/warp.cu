@@ -30,10 +30,17 @@
 //   thread: each tap's warp-wide load covers one row of 32 pixels, and a
 //   thread has two pixels' loads in flight; a 2-D grid, so no integer
 //   division; flow read as float2;
-// - the channel count a template parameter (1, 2, 3, 6; any other count
-//   up to 8 takes the generic instance): a tap's channels are one or a
-//   few loads (float2 for even C) and the taps stay in registers
+// - the channel count a template parameter (1, 2, 3, 6, 9; any other
+//   count up to 8 takes the generic instance): a tap's channels are one or
+//   a few loads (float2 for even C) and the taps stay in registers
 //   (warp_tap.cuh);
+// - 9 channels, fsmo's warp of an RGB clip (flt1|flt2|smo, each 3), have
+//   an instance of their own rather than a split into launches of at most
+//   8: one launch computes the one validity mask that all three priors
+//   share, so no two parts can disagree on it, and every tap's 9 channels
+//   are read by the same thread (36 B apart, in the line its first
+//   channel opened); a split would read the flow and occlusion twice and
+//   write the mask twice. Like 6, it is built for 4 blocks an SM;
 // - the mask written as the bytes of a torch.bool tensor: no second
 //   kernel;
 // - the TV-L1 entry reads u1 and u2 straight from the solver's (6, H, W)
@@ -73,7 +80,7 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
     warp_tile_kernel(const float* __restrict__ im, const float* __restrict__ flow,
                      const float* __restrict__ aux, float* __restrict__ out,
                      uint8_t* __restrict__ valid, int h, int w, int c_rt) {
-  constexpr int CA = C > 0 ? C : kK4MaxC;
+  constexpr int CA = C > 0 ? C : kK4GenericC;
   const int c = C > 0 ? C : c_rt;
   const int x = blockIdx.x * kTileW + threadIdx.x;
   const int y0 = blockIdx.y * kTileH + threadIdx.y;
@@ -154,6 +161,7 @@ extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
     case 2: return launch<2, false>(i, f, o, r, v, h, w, c, s);
     case 3: return launch<3, false>(i, f, o, r, v, h, w, c, s);
     case 6: return launch<6, false>(i, f, o, r, v, h, w, c, s);
+    case 9: return launch<9, false>(i, f, o, r, v, h, w, c, s);
     default: return launch<0, false>(i, f, o, r, v, h, w, c, s);
   }
 }

@@ -7,10 +7,13 @@
 
 #include "bicubic.cuh"
 
-constexpr int kK4MaxC = 8;
+// The most channels K4 takes: fsmo's warp of an RGB clip, flt1|flt2|smo,
+// is 3 x 3 (warp.cu); the generic instance holds up to kK4GenericC.
+constexpr int kK4MaxC = 9;
+constexpr int kK4GenericC = 8;
 
 // Below, C > 0 is an instance for C channels, in CA = C slots; C == 0 the
-// generic instance, c channels in CA = kK4MaxC slots.
+// generic instance, c channels in CA = kK4GenericC slots.
 
 // The channels of the pixel at p: float2 loads for even C (p is 8-byte
 // aligned where the image is, since every pixel is C floats).

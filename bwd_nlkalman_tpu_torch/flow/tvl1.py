@@ -66,6 +66,18 @@ def _pyramid_sizes(w: int, h: int, ns: int, zfactor: float) -> list[tuple[int, i
     return sizes
 
 
+def flow_carry_shape(h: int, w: int, nscales: int = 100, fscale: int = 0,
+                     zfactor: float = 0.5) -> tuple[int, int, int]:
+    """Shape of the level-``fscale`` flow that warm-started streaming
+    carries, (h_fs, w_fs, 2): that of ``tvl1_flow(..., return_carry=True)``'s
+    carry (JAX flow/tvl1.py:252-261)."""
+    ns = num_scales(w, h, nscales, zfactor)
+    cw, ch_ = w, h
+    for _ in range(min(fscale, ns)):
+        cw, ch_ = zoom_size(cw, ch_, zfactor)
+    return (ch_, cw, 2)
+
+
 def flow_bases(h: int, w: int, nscales: int = 100, zfactor: float = 0.5):
     """Every numpy-built matrix a flow on (h, w) frames uses: key -> build function."""
     out = {("blur", h, PRESMOOTHING_SIGMA): blur_matrix_np,
@@ -148,9 +160,16 @@ def tvl1_flow(i0, i1, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
                             nwarps=nwarps, epsilon=epsilon,
                             max_iters=max_iters, engine=engine)
 
-    # levels below fscale are never solved, only upsampled through
-    u_fs = _coarse_to_fine(pyr[fs:], sizes[fs:], solve, zfactor, bases)
-    u = _upsample_chain(u_fs, sizes, fs, zfactor, bases)
+    # levels below fscale are never solved, only upsampled through; with
+    # fscale at or past the coarsest level none is, and the flow stays zero
+    # (the JAX package's loop, flow/tvl1.py:310-323)
+    if fs < ns:
+        u_fs = _coarse_to_fine(pyr[fs:], sizes[fs:], solve, zfactor, bases)
+        u = _upsample_chain(u_fs, sizes, fs, zfactor, bases)
+    else:
+        cw, ch_ = sizes[-1]
+        u_fs = i0n.new_zeros((ch_, cw, 2))
+        u = i0n.new_zeros((h, w, 2))
     return (u, u_fs) if return_carry else u
 
 
@@ -186,7 +205,8 @@ def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
     h, w = a.shape
     ns = num_scales(w, h, nscales, zfactor)
     fs = min(fscale, ns)
-    sizes = _pyramid_sizes(w, h, ns, zfactor)
+    # the level-fscale size, past the coarsest level where fscale is
+    sizes = _pyramid_sizes(w, h, max(ns, fs + 1), zfactor)
     for _ in range(fs):
         a, b = zoom_out(a, zfactor, bases), zoom_out(b, zfactor, bases)
 

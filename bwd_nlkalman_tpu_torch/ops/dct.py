@@ -1,7 +1,9 @@
-"""Orthonormal patch DCT bases and the plain all-patch DCT.
+"""Orthonormal patch DCT bases, the plain all-patch DCT and the
+whole-image DCT of the multiscale pyramid.
 
-Port of the parts of ``bwd_nlkalman_tpu.ops.dct`` the NLK pass uses. The
-numpy bases are copies of the JAX package's (that module imports JAX).
+Port of the parts of ``bwd_nlkalman_tpu.ops.dct`` the NLK pass and the
+pyramid use. The numpy bases are copies of the JAX package's (that
+module imports JAX).
 """
 
 from __future__ import annotations
@@ -11,6 +13,8 @@ import math
 
 import numpy as np
 import torch
+
+from .bases import basis
 
 
 @functools.lru_cache(maxsize=None)
@@ -58,3 +62,56 @@ def dct_image_all_patches(img: torch.Tensor, psz: int) -> torch.Tensor:
                     acc = t if acc is None else acc + t
                 outs.append(acc)
     return torch.stack(outs, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# whole-image DCT (multiscale pyramid convention)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def _unnorm_dct2_basis_np(n: int) -> np.ndarray:
+    """Unnormalized FFTW REDFT10 matrix U[k, i] = 2 cos(pi (2i+1) k / 2n)."""
+    k = np.arange(n)[:, None].astype(np.float64)
+    i = np.arange(n)[None, :].astype(np.float64)
+    return (2.0 * np.cos(np.pi * (2 * i + 1) * k / (2 * n))).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _unnorm_dct3_basis_np(n: int) -> np.ndarray:
+    """Unnormalized FFTW REDFT01 matrix V with V @ U = 2n I."""
+    v = _unnorm_dct2_basis_np(n).T.astype(np.float64).copy()
+    v[:, 0] *= 0.5
+    return v.astype(np.float32)
+
+
+def image_dct_keys(n: int) -> dict:
+    """The constants of whole-image transforms along an axis of n samples:
+    key -> build function."""
+    return {("dct2", n): _unnorm_dct2_basis_np, ("dct3", n): _unnorm_dct3_basis_np}
+
+
+def _sep(mh: torch.Tensor, img: torch.Tensor, mw: torch.Tensor) -> torch.Tensor:
+    """mh @ img @ mw^T per channel of an (H, W, C) image: two full-float32
+    matrix products (at 1080x1920, 12.5 GFLOP a channel)."""
+    planes = img.permute(2, 0, 1)
+    return torch.matmul(torch.matmul(mh, planes), mw.T).permute(1, 2, 0)
+
+
+def dct2_image(img: torch.Tensor, bases=None) -> torch.Tensor:
+    """Whole-image 2-D DCT-II of an (H, W, C) image with the multiscaler
+    normalisation: FFTW REDFT10 x REDFT10 of each channel over 4 H W
+    (lib/multiscale/multiscaler.cpp:20-62, non-ISOMETRIC build)."""
+    h, w = img.shape[0], img.shape[1]
+    uh = basis(bases, ("dct2", h), _unnorm_dct2_basis_np, img.device)
+    uw = basis(bases, ("dct2", w), _unnorm_dct2_basis_np, img.device)
+    return _sep(uh, img, uw) / (4.0 * h * w)
+
+
+def idct2_image(coef: torch.Tensor, bases=None) -> torch.Tensor:
+    """Whole-image 2-D DCT-III (unnormalized REDFT01), inverse of
+    :func:`dct2_image`."""
+    h, w = coef.shape[0], coef.shape[1]
+    vh = basis(bases, ("dct3", h), _unnorm_dct3_basis_np, coef.device)
+    vw = basis(bases, ("dct3", w), _unnorm_dct3_basis_np, coef.device)
+    return _sep(vh, coef, vw)

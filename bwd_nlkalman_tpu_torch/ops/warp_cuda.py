@@ -16,9 +16,10 @@ import torch
 from .._build import call, stream_ptr
 from .._dispatch import LaunchCounter, check_tensor
 
-MAX_C = 8          # channels the kernel takes (kK4MaxC, csrc/warp_tap.cuh)
+MAX_C = 9          # channels the kernel takes (kK4MaxC, csrc/warp_tap.cuh)
 
-LAUNCHES = LaunchCounter()   # wrapper calls, both entries
+LAUNCHES = LaunchCounter()     # wrapper calls, both entries
+LAUNCHES_C9 = LaunchCounter()  # of those, warps of 9 channels (fsmo on RGB)
 
 
 def _check_frame(h: int, w: int, c: int) -> None:
@@ -53,6 +54,8 @@ def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
          None if occl is None else occl.data_ptr(), out.data_ptr(),
          valid.data_ptr(), h, w, c, ctypes.c_void_p(stream_ptr(dev)))
     LAUNCHES.add()
+    if c == 9:
+        LAUNCHES_C9.add()
     return out, valid
 
 

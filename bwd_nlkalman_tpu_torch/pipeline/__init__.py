@@ -1,13 +1,18 @@
-"""Whole-sequence denoising of the port, the ``NLKalmanDenoiser`` module
-and the ground-truth harness."""
+"""Whole-sequence, streaming and multiscale denoising of the port, their
+modules and the ground-truth harness."""
 
 from .gt import add_noise_sequence, gt_measures, sequence_psnr  # noqa: F401
+from .multiscale import MultiscaleDenoiser, ms_denoise_sequence  # noqa: F401
 from .sequence import (  # noqa: F401
     FlowConfig,
     NLKalmanDenoiser,
+    denoise_batch,
     denoise_sequence,
     filter_frame_pair,
     filter_sequence,
     filter_step_warm,
+    fsmo_sequence,
+    lsmo_sequence,
     smooth_sequence,
 )
+from .stream import StreamingDenoiser, run_streaming  # noqa: F401

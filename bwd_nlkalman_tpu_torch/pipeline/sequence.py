@@ -9,6 +9,11 @@ the occlusion mask, a warp and one smoother pass per frame. The JAX
 package's ``lax.scan`` is a Python loop here; the warm-start gate is a
 Python branch (one host sync per frame).
 
+The causal smoothers run here too: fsmo smooths each frame against the
+previous smoothed frame inside the forward loop, reusing its flow and
+its one warp (all three priors ride it); lsmo smooths frame t-1 against
+flt2_t along the forward flow once frame t is filtered.
+
 Frames are (T, H, W, C) float32 in [0, 255]. ``engine="auto"`` runs the
 hand-written kernels on CUDA tensors and the plain versions on CPU
 tensors; ``engine="plain"`` runs the plain versions on any device.
@@ -21,9 +26,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from .._dispatch import check_engine
+from .._dispatch import check_engine, entry_device, runs_kernels
 from ..core import nlkalman_filter_frame, nlkalman_smooth_frame
 from ..core.engine import nlk_bases
+from ..core.engine_cuda import check_params
 from ..flow.occlusion import occlusion_mask
 from ..flow.tvl1 import flow_bases, luma, tvl1_flow, tvl1_flow_warm
 from ..ops.bases import make_bases
@@ -72,20 +78,63 @@ class FlowConfig:
                               engine=engine, bases=bases, **self._kw())
 
 
+def _warp_passes(noisy, prevs, flow, occ_th, sigma, p1, p2, engine="auto",
+                 bases=None):
+    """The two filter passes of ``noisy`` given the backward flow and the
+    previous outputs ``prevs`` (RGB: flt1, flt2 and, for fsmo, smo). All
+    of them ride one warp: same flow, same validity. Returns (f11, f21) in
+    OPP, the warped priors after the first two (OPP) and the validity."""
+    n_opp = rgb2opp(noisy)
+    occ = occlusion_mask(flow, occ_th)
+    c = noisy.shape[-1]
+    wt, v1 = warp_bicubic_nan(torch.cat([rgb2opp(p) for p in prevs], dim=-1),
+                              flow, occ, engine=engine)
+    f11 = nlkalman_filter_frame(n_opp, wt[..., :c], v1, None, sigma, p1,
+                                engine=engine, bases=bases)
+    f21 = nlkalman_filter_frame(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2,
+                                engine=engine, bases=bases)
+    return f11, f21, wt[..., 2 * c:], v1
+
+
 def _filter_with_flow(noisy, flt1_prev, flt2_prev, flow, occ_th, sigma, p1, p2,
                       engine="auto", bases=None):
     """Two-pass filtering given an already-computed backward flow."""
-    n_opp = rgb2opp(noisy)
-    occ = occlusion_mask(flow, occ_th)
-    # both previous outputs ride one warp: same flow, same validity
-    c = noisy.shape[-1]
-    both = torch.cat([rgb2opp(flt1_prev), rgb2opp(flt2_prev)], dim=-1)
-    wb, v1 = warp_bicubic_nan(both, flow, occ, engine=engine)
-    f11 = nlkalman_filter_frame(n_opp, wb[..., :c], v1, None, sigma, p1,
-                                engine=engine, bases=bases)
-    f21 = nlkalman_filter_frame(n_opp, wb[..., c:], v1, f11, sigma, p2,
-                                engine=engine, bases=bases)
+    f11, f21, _, _ = _warp_passes(noisy, (flt1_prev, flt2_prev), flow, occ_th,
+                                  sigma, p1, p2, engine, bases)
     return opp2rgb(f11), opp2rgb(f21)
+
+
+def fsmo_step(noisy, flt1_prev, flt2_prev, smo_prev, flow, occ_th, sigma, p1,
+              p2, ps, engine="auto", bases=None):
+    """One fsmo step (JAX sequence.py:364-385) given the backward flow:
+    the two filter passes and the smoother pass of the current frame
+    against smo_prev, all three priors warped in one call. The smoother
+    takes the second pass's output in OPP as it comes, not through an RGB
+    round trip. Returns (flt1, flt2, smo) in RGB."""
+    f11, f21, ws, v1 = _warp_passes(noisy, (flt1_prev, flt2_prev, smo_prev),
+                                    flow, occ_th, sigma, p1, p2, engine, bases)
+    smo = nlkalman_smooth_frame(f21, ws, v1, sigma, ps, engine=engine,
+                                bases=bases)
+    return opp2rgb(f11), opp2rgb(f21), opp2rgb(smo)
+
+
+def smooth_with_flow(frame_flt2, smo_next, flow, occ_th, sigma, ps,
+                     engine="auto", bases=None):
+    """One smoother pass of ``frame_flt2`` against ``smo_next`` warped
+    along ``flow`` (RGB in and out)."""
+    occ = occlusion_mask(flow, occ_th)
+    w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, occ, engine=engine)
+    return opp2rgb(nlkalman_smooth_frame(rgb2opp(frame_flt2), w0, v0, sigma,
+                                         ps, engine=engine, bases=bases))
+
+
+def smooth_pair(frame, nxt, sigma, ps, flow_cfg: FlowConfig, engine="auto",
+                bases=None):
+    """:func:`smooth_with_flow` along the cold flow from ``frame`` to
+    ``nxt``: a step of the RTS smoother, of lsmo and of the lz3 smoother."""
+    flow = flow_cfg.flow(luma(frame), luma(nxt), engine, bases)
+    return smooth_with_flow(frame, nxt, flow, flow_cfg.occ_threshold, sigma,
+                            ps, engine, bases)
 
 
 def filter_frame_pair(noisy, flt1_prev, flt2_prev, sigma, p1, p2,
@@ -161,14 +210,7 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
                     bases=None):
     """Backward RTS smoothing of the filtered stack (T, H, W, C) -> smo1."""
     ps = ps or default_params(sigma, FilterMode.SMO1)
-
-    def smooth_with_flow(frame_flt2, smo_next, flow):
-        occ = occlusion_mask(flow, flow_cfg.occ_threshold)
-        w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, occ, engine=engine)
-        return opp2rgb(nlkalman_smooth_frame(rgb2opp(frame_flt2), w0, v0,
-                                             sigma, ps, engine=engine,
-                                             bases=bases))
-
+    occ_th = flow_cfg.occ_threshold
     n = flt2.shape[0]
     smo = [None] * n
     smo[-1] = flt2[-1]
@@ -178,16 +220,54 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
         # frame T-2 is peeled: the cold pyramid seeds the carry
         flow1, u_c = flow_cfg.flow_cold_carry(luma(flt2[-2]), luma(smo[-1]),
                                               engine, bases)
-        smo[-2] = smooth_with_flow(flt2[-2], smo[-1], flow1)
+        smo[-2] = smooth_with_flow(flt2[-2], smo[-1], flow1, occ_th, sigma, ps,
+                                   engine, bases)
         for t in range(n - 3, -1, -1):
             flow, u_c = flow_cfg.flow_warm(luma(flt2[t]), luma(smo[t + 1]),
                                            u_c, engine, bases)
-            smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow)
+            smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow, occ_th, sigma,
+                                      ps, engine, bases)
     else:
         for t in range(n - 2, -1, -1):
-            flow = flow_cfg.flow(luma(flt2[t]), luma(smo[t + 1]), engine, bases)
-            smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow)
+            smo[t] = smooth_pair(flt2[t], smo[t + 1], sigma, ps, flow_cfg,
+                                 engine, bases)
     return torch.stack(smo)
+
+
+def fsmo_sequence(noisy, sigma, p1: NLKParams | None = None,
+                  p2: NLKParams | None = None, ps: NLKParams | None = None,
+                  flow_cfg: FlowConfig = FlowConfig(), engine="auto",
+                  bases=None):
+    """Causal forward smoothing interleaved with filtering
+    (scripts/nlkalman-fsmo-seq.sh:60-94): frame t is smoothed against
+    smo_{t-1} with the filter step's flow and warp; smo_0 = flt2_0.
+    Every step solves the cold flow, as the JAX package's does: fsmo
+    ignores ``warm_start``. Returns (flt1, flt2, smo1)."""
+    p1 = p1 or default_params(sigma, FilterMode.FLT1)
+    p2 = p2 or default_params(sigma, FilterMode.FLT2)
+    ps = ps or default_params(sigma, FilterMode.SMO1)
+    f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2, flow_cfg,
+                                 engine, bases)
+    outs = [(f11, f21, f21)]
+    for t in range(1, noisy.shape[0]):
+        f11, f21, smo = outs[-1]
+        flow = flow_cfg.flow(luma(noisy[t]), luma(f21), engine, bases)
+        outs.append(fsmo_step(noisy[t], f11, f21, smo, flow,
+                              flow_cfg.occ_threshold, sigma, p1, p2, ps,
+                              engine, bases))
+    return tuple(torch.stack(x) for x in zip(*outs))
+
+
+def lsmo_sequence(flt2, sigma, ps: NLKParams | None = None,
+                  flow_cfg: FlowConfig = FlowConfig(), engine="auto",
+                  bases=None):
+    """Lag-1 smoother (scripts/nlkalman-lsmo-seq.sh:87-118): frame t-1 is
+    smoothed against flt2_t along the cold forward flow flt2_{t-1} ->
+    flt2_t; the last frame passes through."""
+    ps = ps or default_params(sigma, FilterMode.SMO1)
+    lsm = [smooth_pair(flt2[t], flt2[t + 1], sigma, ps, flow_cfg, engine, bases)
+           for t in range(flt2.shape[0] - 1)]
+    return torch.stack(lsm + [flt2[-1]])
 
 
 def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
@@ -205,50 +285,56 @@ def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
     return flt1, flt2, smo1
 
 
-class NLKalmanDenoiser(nn.Module):
-    """The nlkalman-seq slice as a module: ``forward(noisy) -> (flt1, flt2, smo1)``.
+def denoise_batch(noisy_batch, sigma, engine="auto", bases=None):
+    """Denoise a batch of clips (B, T, H, W, C), one clip after the other
+    on the batch's device, each with the default flow and parameters (JAX
+    sequence.py:454-480 without its mesh: several cards are another
+    matter). Returns the (flt1, flt2, smo1) stacks, each (B, T, H, W, C)."""
+    outs = [denoise_sequence(clip, sigma, engine=engine, bases=bases)
+            for clip in noisy_batch]
+    return tuple(torch.stack(x) for x in zip(*outs))
 
-    Holds the three ``NLKParams``, the ``FlowConfig`` (and the smoother's,
-    when it differs) and, as registered buffers, the numpy-built constants
-    of its frame size: the DCT bases, the Gaussian window, and the
-    presmoothing blur and pyramid zoom matrices. The buffers are built on
-    ``device``, the card unless the caller asks for the CPU; a card that
-    is not there raises. Inputs must lie on the module's device.
-    ``smoothing=False`` returns smo1 as None. No randomness, no autograd.
-    """
 
-    def __init__(self, sigma: float, height: int, width: int,
-                 flow_cfg: FlowConfig = FlowConfig(),
-                 p1: NLKParams | None = None, p2: NLKParams | None = None,
-                 ps: NLKParams | None = None, engine: str = "auto",
-                 device="cuda", smooth_flow_cfg: FlowConfig | None = None,
-                 smoothing: bool = True):
-        super().__init__()
-        self.sigma = float(sigma)
-        self.height, self.width = height, width
-        self.flow_cfg = flow_cfg
-        self.smooth_flow_cfg = smooth_flow_cfg
-        self.smoothing = smoothing
-        self.p1 = p1 or default_params(sigma, FilterMode.FLT1)
-        self.p2 = p2 or default_params(sigma, FilterMode.FLT2)
-        self.ps = ps or default_params(sigma, FilterMode.SMO1)
+def pipeline_bases(h: int, w: int, flow_cfgs, params) -> dict:
+    """Every numpy-built constant that flows of ``flow_cfgs`` and NLK passes
+    of ``params`` use on (h, w) frames: key -> build function."""
+    consts = {}
+    for cfg in flow_cfgs:
+        consts.update(flow_bases(h, w, cfg.nscales, cfg.zfactor))
+    for p in params:
+        consts.update(nlk_bases(p.patch_sz))
+    return consts
+
+
+SMOOTHERS = ("rts", "fsmo", "lsmo", "none")
+
+
+class PipelineModule(nn.Module):
+    """What the pipeline modules share: the constants of one frame size as
+    registered buffers on the device, built once, and the checks of an
+    input before any launch."""
+
+    def _setup(self, who: str, height: int, width: int, engine: str, device,
+               passes, consts) -> None:
+        """Build ``consts`` (key -> numpy build) as buffers on ``device``, the
+        card unless the caller asks for the CPU (a card that is not there
+        raises); where the module runs the kernels, ``passes`` ((NLKParams,
+        mode) pairs) K1 does not take raise here."""
         check_engine(engine)
         self.engine = engine
-        device = torch.device(device)
-        if device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("NLKalmanDenoiser: no CUDA device; pass "
-                               "device='cpu' to run on the CPU")
-        consts = {}
-        for cfg in (flow_cfg, smooth_flow_cfg or flow_cfg):
-            consts.update(flow_bases(height, width, cfg.nscales, cfg.zfactor))
-        for psz in {self.p1.patch_sz, self.p2.patch_sz, self.ps.patch_sz}:
-            consts.update(nlk_bases(psz))
+        self.height, self.width = height, width
+        self.passes = list(passes)
+        device = entry_device(device, who)
+        if runs_kernels(device, engine):
+            check_params(self.passes)
         for name, t in make_bases(consts, device).items():
             self.register_buffer(name, t)
 
-    @torch.no_grad()
-    def forward(self, noisy: torch.Tensor):
-        t, h, w, c = noisy.shape
+    def bases(self, noisy: torch.Tensor) -> dict:
+        """The module's constants, once ``noisy`` (T, H, W, C) is checked
+        against its frame size, device and, where it runs the kernels,
+        K1's channel limit."""
+        h, w, c = noisy.shape[1:]
         if (h, w) != (self.height, self.width):
             raise ValueError(f"frames are {h}x{w}, the module was built for "
                              f"{self.height}x{self.width}")
@@ -256,8 +342,68 @@ class NLKalmanDenoiser(nn.Module):
         dev = next(iter(bases.values())).device
         if noisy.device != dev:
             raise ValueError(f"input on {noisy.device}, module on {dev}")
-        return denoise_sequence(noisy.to(torch.float32).contiguous(),
-                                self.sigma, self.p1, self.p2, self.ps,
-                                self.flow_cfg, smoothing=self.smoothing,
-                                smooth_flow_cfg=self.smooth_flow_cfg,
-                                engine=self.engine, bases=bases)
+        if runs_kernels(dev, self.engine):
+            check_params(self.passes, c)
+        return bases
+
+
+class NLKalmanDenoiser(PipelineModule):
+    """The nlkalman-seq pipeline as a module: ``forward(noisy) -> (flt1,
+    flt2, smo1)``.
+
+    ``smoother`` picks the smoothing: "rts" the backward pass
+    (nlkalman-seq.sh), "fsmo" causal forward smoothing and "lsmo" lag-1
+    smoothing (:func:`fsmo_sequence`, :func:`lsmo_sequence`), "none"
+    filtering only, smo1 None. The smoother's own flow configuration
+    ``smooth_flow_cfg`` serves rts and lsmo; fsmo smooths along the
+    filter's flow, as the JAX package's does.
+
+    Holds the three ``NLKParams``, the flow configurations and, as
+    registered buffers, the numpy-built constants of its frame size: the
+    DCT bases, the Gaussian window, and the presmoothing blur and pyramid
+    zoom matrices. The buffers are built on ``device``, the card unless
+    the caller asks for the CPU; a card that is not there raises. Where
+    the module runs the kernels, parameters K1 does not take raise here,
+    and a channel count it does not take at the first frame, before any
+    launch. Inputs must lie on the module's device. No randomness, no
+    autograd.
+    """
+
+    def __init__(self, sigma: float, height: int, width: int,
+                 flow_cfg: FlowConfig = FlowConfig(),
+                 p1: NLKParams | None = None, p2: NLKParams | None = None,
+                 ps: NLKParams | None = None, engine: str = "auto",
+                 device="cuda", smooth_flow_cfg: FlowConfig | None = None,
+                 smoother: str = "rts"):
+        super().__init__()
+        if smoother not in SMOOTHERS:
+            raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
+        self.sigma = float(sigma)
+        self.flow_cfg = flow_cfg
+        self.smooth_flow_cfg = smooth_flow_cfg
+        self.smoother = smoother
+        self.p1 = p1 or default_params(sigma, FilterMode.FLT1)
+        self.p2 = p2 or default_params(sigma, FilterMode.FLT2)
+        self.ps = ps or default_params(sigma, FilterMode.SMO1)
+        self._setup("NLKalmanDenoiser", height, width, engine, device,
+                    [(self.p1, "filter"), (self.p2, "filter"), (self.ps, "smooth")],
+                    pipeline_bases(height, width, (flow_cfg, smooth_flow_cfg or flow_cfg),
+                                   (self.p1, self.p2, self.ps)))
+
+    @torch.no_grad()
+    def forward(self, noisy: torch.Tensor):
+        bases = self.bases(noisy)
+        noisy = noisy.to(torch.float32).contiguous()
+        kw = dict(engine=self.engine, bases=bases)
+        if self.smoother == "fsmo":
+            return fsmo_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
+                                 self.flow_cfg, **kw)
+        if self.smoother == "lsmo":
+            flt1, flt2 = filter_sequence(noisy, self.sigma, self.p1, self.p2,
+                                         self.flow_cfg, **kw)
+            return flt1, flt2, lsmo_sequence(flt2, self.sigma, self.ps,
+                                             self.smooth_flow_cfg or self.flow_cfg,
+                                             **kw)
+        return denoise_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
+                                self.flow_cfg, smoothing=self.smoother == "rts",
+                                smooth_flow_cfg=self.smooth_flow_cfg, **kw)

@@ -24,7 +24,9 @@ arguments, one GPU). Phases, each reported on its own line:
    flow hundreds of pixels wide, timed along the flow the main path
    computes for the slices' scene with a smooth and a noisy flow beside
    it, its TV-L1 entry at 1080x1920 and, on a line of its own,
-   ``grid_sample``'s bicubic as a yardstick;
+   ``grid_sample``'s bicubic as a yardstick; K4 at 9 channels (fsmo's warp
+   of an RGB clip) at those sizes and at 1080p along the main path's flow,
+   timed; K1 at sigma 10 and 40, gray and RGB, at 270x480;
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
    denoise, and K1, K2 and K4 must have launched during that run; then
@@ -41,10 +43,26 @@ arguments, one GPU). Phases, each reported on its own line:
    ``bwd_nlkalman_tpu_torch.tools.vpu_probe``, what ``python -m`` runs):
    P's FMA rates against the published peaks;
 8. slice against plain: at 128x160, 3 frames, kernels and plain versions
-   must give flt2 and smo1 PSNR within 0.05 dB of each other.
+   must give flt2 and smo1 PSNR within 0.05 dB of each other; so must
+   fsmo and lsmo (RGB), streaming fsmo (RGB) and both multiscale
+   pyramids (2 levels) on every output; ``get_model`` runs each of its
+   six variants to finite frames;
+9. streaming fsmo: ``run_streaming`` over 4 frames of 1080p RGB at
+   sigma=20 with warm-started flow, checkpoints every 2 frames written
+   in the background; a second run stopped after frame 1 and resumed
+   from its checkpoint must give frames 2-3 as the first run did (max
+   abs diff <= 1e-4); K1, K2, K4 and K4's 9-channel warp must have
+   launched; frames/s and a profiled run;
+10. ``python -m bwd_nlkalman_tpu_torch.cli.nlkalman_seq --smoother lsmo``
+   (run in this process) on 3 frames of 1080p gray PNGs in ground-truth
+   mode: the measures file, smo1 >= flt2 - 0.3 dB, K1, K2 and K4;
+11. multiscale: ``MultiscaleDenoiser`` with the DCT and the Lanczos-3
+   pyramid, each on 3 frames of 1080p gray at sigma=20 with the
+   automatic 3 levels: finite, smo1 >= noisy + 6 dB, K1 launched on
+   every level; frames/s and a profiled run.
 
 Every launch counter is set to 0 just before each of the paths 4-7 and
-read just after. The second-to-last line is a JSON object with one entry
+9-11 and read just after. The second-to-last line is a JSON object with one entry
 per kernel; the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
 """
@@ -86,14 +104,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def make_clip(h, w, frames, sigma, seed=0):
+def make_clip(h, w, frames, sigma, seed=0, channels=1):
     """Structured translating scene + AWGN (bench.py:make_content's scene,
-    same draws): (clean, noisy) as (T, H, W, 1) float32."""
+    same draws; one field per channel): (clean, noisy) as (T, H, W, C)
+    float32."""
     rng = np.random.default_rng(seed)
-    base = np.cumsum(np.cumsum(rng.standard_normal((h + 8, w + 8)), axis=0), axis=1)
-    base = ((base - base.min()) / (base.max() - base.min()) * 175 + 40).astype(np.float32)
-    clean = np.stack([base[i % 8: i % 8 + h, i % 8: i % 8 + w]
-                      for i in range(frames)])[..., None]
+    fields = []
+    for _ in range(channels):
+        base = np.cumsum(np.cumsum(rng.standard_normal((h + 8, w + 8)), axis=0), axis=1)
+        fields.append((base - base.min()) / (base.max() - base.min()) * 175 + 40)
+    base = np.stack(fields, -1).astype(np.float32)
+    clean = np.stack([base[i % 8: i % 8 + h, i % 8: i % 8 + w] for i in range(frames)])
     noisy = clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)
     return clean, noisy
 
@@ -174,10 +195,11 @@ def k1_work(cur, prev_valid, p, mode, has_prev, has_basic):
     not counted, so this is a lower bound of the work."""
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import patch_validity
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import pass_radius
 
     h, w, c = cur.shape
     hh, ww, f = h - 7, w - 7, 64 * c
-    rad = max(p.search_sz_x, p.search_sz_t) if mode == "filter" else p.search_sz_t
+    rad = pass_radius(p, mode)
     py = torch.arange(0, hh, 4, device=cur.device)
     px = torch.arange(0, ww, 4, device=cur.device)
 
@@ -232,7 +254,8 @@ BOUNDS = {}     # kernel id -> (least ms, "bytes" or "operations") of the timed 
 def phase_k1(smi):
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
-    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda, pass_with_weights
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import (dense_pass_cuda, pass_radius,
+                                                         pass_with_weights)
     from bwd_nlkalman_tpu_torch.ops.bases import make_bases
     from bwd_nlkalman_tpu_torch.params import FilterMode, NLKParams, default_params
     from bwd_nlkalman_tpu_torch.tools.k1_bench import nlk_inputs, pass_args, stage_ms
@@ -284,8 +307,31 @@ def phase_k1(smi):
         err = max_err(got, want)
         worst = max(worst, err)
         log(f"[3 parity] K1 {mode} prev={has_prev} basic={has_basic} ch={ch} "
-            f"rad={max(p.search_sz_x, p.search_sz_t) if mode == 'filter' else p.search_sz_t} "
+            f"rad={pass_radius(p, mode)} "
             f"{h}x{w}: max abs err {err:.3e} (rtol 1e-3, atol 5e-2)")
+        assert_close("K1", got, want, rtol=1e-3, atol=5e-2)
+    # other noise levels than the slices' (the multiscale levels' sigma/2
+    # and sigma/4 are below 20; at 40 the smoother keeps 105 of its radius-5
+    # window's 121 candidates), gray and RGB, each of the three passes, at
+    # the bars of the 270x480 cases above; from their own generator too
+    rng_sigma = np.random.default_rng(2)
+    for sigma, ch, (mode, fm, has_basic) in itertools.product(
+            (10.0, 40.0), (1, 3), (("filter", FilterMode.FLT1, False),
+                                   ("filter", FilterMode.FLT2, True),
+                                   ("smooth", FilterMode.SMO1, False))):
+        cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                   for a in nlk_inputs(rng_sigma, *MID, ch, sigma))
+        p = default_params(sigma, fm)
+        args = (cur, prev, valid, basic if has_basic else cur, sigma, p, mode, True,
+                has_basic, kb)
+        got = dense_pass_cuda(*args)
+        want = dense_pass_v2(*args)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        worst = max(worst, err)
+        log(f"[3 parity] K1 {mode} {fm.value} sigma={sigma:g} ch={ch} "
+            f"npatches_t={p.npatches_t} {MID[0]}x{MID[1]}: max abs err {err:.3e} "
+            "(rtol 1e-3, atol 5e-2)")
         assert_close("K1", got, want, rtol=1e-3, atol=5e-2)
     PARITY["K1"] = worst
 
@@ -488,7 +534,7 @@ def phase_k4(smi):
     worst = 0.0
     # every channel instance of the main path at the JAX suite's size, a
     # ragged frame, and a quarter-size frame with a band of wide flow
-    for c in (1, 2, 3, 6):
+    for c in (1, 2, 3, 6, 9):
         for h, w, band in ((32, 40, False), (37, 53, False), (270, 480, True)):
             im = torch.from_numpy(rng.uniform(0, 255, (h, w, c)).astype(np.float32)).cuda()
             flow = torch.from_numpy(noisy_flow(rng, h, w, band)).cuda()
@@ -526,8 +572,30 @@ def phase_k4(smi):
             f"identical={bool(torch.equal(gv, wv))}")
         check(torch.equal(gv, wv), "K4 1080p validity masks differ")
         assert_close("K4 1080p", got, want, rtol=0.0, atol=1e-3)
-    # the timed call: the filter's warp along the main path's flow
+    # fsmo's warp of an RGB clip, flt1|flt2|smo: 9 channels, with and without
+    # occlusion, along the main path's flow; timed with the occlusion mask,
+    # as fsmo warps
     flow = flows["the main path's TV-L1"]
+    im9 = torch.from_numpy(rng.uniform(0, 255, (h, w, 9)).astype(np.float32)).cuda()
+    for oc in (None, occl):
+        got, gv = bicubic_warp_cuda(im9, flow, oc)
+        want, wv = bicubic_warp_plain(im9, flow, oc)
+        err = max_err(got, want)
+        worst = max(worst, err)
+        log(f"[3 parity] K4 1080p C=9 occl={oc is not None} along the main path's TV-L1 "
+            f"flow: max abs err {err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} "
+            f"identical={bool(torch.equal(gv, wv))}")
+        check(torch.equal(gv, wv), "K4 1080p C=9 validity masks differ")
+        assert_close("K4 1080p C=9", got, want, rtol=0.0, atol=1e-3)
+    k9_ms, p9_ms = timed_pair(lambda: bicubic_warp_cuda(im9, flow, occl),
+                              lambda: bicubic_warp_plain(im9, flow, occl), 20, 3)
+    d9_ms = device_ms(lambda: bicubic_warp_cuda(im9, flow, occl), 20)
+    b9_ms, b9_by = bound(h * w * 9 * K4_FLOPS_CH, h * w * (4 * 9 + 8 + 4 + 4 * 9 + 1))
+    log(f"[3 time] K4 1080p C=9 with occlusion (fsmo's RGB warp) along the main path's "
+        f"TV-L1 flow: kernel {k9_ms:.4f} ms between events, device {fmt_ms(d9_ms)}, plain "
+        f"{p9_ms:.3f} ms, bound {b9_ms:.4f} ms ({b9_by}; 85 B a pixel) ({smi})")
+    del im9
+    # the timed call: the filter's warp along the main path's flow
     k_ms, p_ms = timed_pair(lambda: bicubic_warp_cuda(im, flow),
                             lambda: bicubic_warp_plain(im, flow), 20, 5)
     d_ms = device_ms(lambda: bicubic_warp_cuda(im, flow), 20)
@@ -776,7 +844,9 @@ def phase_probe():
 
 def phase_slice_vs_plain():
     import torch
-    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
+    from bwd_nlkalman_tpu_torch import models
+    from bwd_nlkalman_tpu_torch.pipeline import (FlowConfig, MultiscaleDenoiser,
+                                                 NLKalmanDenoiser, StreamingDenoiser)
 
     clean_np, noisy_np = make_clip(128, 160, 3, SIGMA, seed=1)
     clean = torch.from_numpy(clean_np).cuda()
@@ -793,6 +863,209 @@ def phase_slice_vs_plain():
             f"flt2/smo1 {res['auto'][0]:.4f}/{res['auto'][1]:.4f} dB, plain "
             f"{res['plain'][0]:.4f}/{res['plain'][1]:.4f} dB, |d| {d2:.4f}/{ds:.4f} (<= 0.05)")
         check(d2 <= 0.05 and ds <= 0.05, "kernels and plain versions disagree")
+
+    # this slice's paths, each kernels against plain on every output: the
+    # causal smoothers and the stream on RGB (fsmo's warp is 9 channels),
+    # the multiscale pyramids at 2 levels on gray
+    rgb_clean_np, rgb_noisy_np = make_clip(128, 160, 3, SIGMA, seed=2, channels=3)
+    rgb_clean = torch.from_numpy(rgb_clean_np).cuda()
+    rgb_noisy = torch.from_numpy(rgb_noisy_np).cuda()
+
+    def stream(engine):
+        sd = StreamingDenoiser(SIGMA, smoother="fsmo", engine=engine)
+        outs = [sd.step(f) + (sd.smo,) for f in rgb_noisy]
+        return tuple(torch.stack(x) for x in zip(*outs))
+
+    runs = {
+        "fsmo RGB": (rgb_clean, lambda e: NLKalmanDenoiser(
+            SIGMA, 128, 160, engine=e, smoother="fsmo")(rgb_noisy)),
+        "lsmo RGB": (rgb_clean, lambda e: NLKalmanDenoiser(
+            SIGMA, 128, 160, engine=e, smoother="lsmo")(rgb_noisy)),
+        "streaming fsmo RGB": (rgb_clean, stream),
+        "multiscale dct": (clean, lambda e: MultiscaleDenoiser(
+            SIGMA, 128, 160, levels=2, engine=e)(noisy)),
+        "multiscale lz3": (clean, lambda e: MultiscaleDenoiser(
+            SIGMA, 128, 160, levels=2, pyramid="lz3", engine=e)(noisy)),
+    }
+    for name, (ref, run) in runs.items():
+        res = {}
+        for engine in ("auto", "plain"):
+            res[engine] = [psnr(ref, x) for x in run(engine)]
+            torch.cuda.synchronize()
+        d = [abs(a - b) for a, b in zip(res["auto"], res["plain"])]
+        log(f"[8 {name} vs plain] 128x160 T=3: kernels flt1/flt2/smo1 "
+            + "/".join(f"{x:.4f}" for x in res["auto"]) + " dB, plain "
+            + "/".join(f"{x:.4f}" for x in res["plain"]) + " dB, |d| "
+            + "/".join(f"{x:.4f}" for x in d) + " (<= 0.05)")
+        check(max(d) <= 0.05, f"{name}: kernels and plain versions disagree")
+    for name in sorted(models.MODELS):
+        out = models.get_model(name, SIGMA)(noisy)
+        p_out = psnr(clean, out)
+        log(f"[8 get_model] {name} 128x160 T=3: {tuple(out.shape)}, PSNR {p_out:.4f} dB")
+        check(out.shape == noisy.shape and bool(torch.isfinite(out).all()),
+              f"get_model({name!r}) gave non-finite frames or a wrong shape")
+
+
+def phase_stream(smi):
+    """Streaming fsmo on 1080p RGB with checkpoints, a stop and a resume."""
+    import tempfile
+
+    import torch
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, run_streaming
+
+    t, (h, w) = 4, FULL
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA, channels=3)
+    kw = dict(smoother="fsmo", flow_cfg=FlowConfig(warm_start=True, warm_nwarps=3))
+
+    def read(i):
+        return noisy_np[i]
+
+    def collect(into):
+        return lambda name, i, a: into.__setitem__((name, i), a)
+
+    run_streaming(read, 0, 1, SIGMA, **kw)      # warm-up
+    torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        full, resumed = {}, {}
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        run_streaming(read, 0, t - 1, SIGMA, checkpoint_path=os.path.join(d, "full.npz"),
+                      write_frame=collect(full), checkpoint_every=2,
+                      async_checkpoint=True, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, "9 stream", ("K1", "K2", "K4", "K4c9"))
+        ck = os.path.join(d, "stopped.npz")
+        run_streaming(read, 0, 1, SIGMA, checkpoint_path=ck, checkpoint_every=2, **kw)
+        index = int(np.load(ck)["index"])
+        run_streaming(read, 0, t - 1, SIGMA, checkpoint_path=ck,
+                      write_frame=collect(resumed), checkpoint_every=2, **kw)
+    check(index == 1, f"the stopped run's checkpoint holds frame {index}, not 1")
+    check(sorted({i for _, i in resumed}) == [2, 3], "the resumed run did not start at frame 2")
+    diff = max(float(np.abs(resumed[k] - full[k]).max()) for k in resumed)
+    stacks = {n: np.stack([full[(n, i)] for i in range(t)]) for n in ("flt1", "flt2", "smo1")}
+    for name, x in stacks.items():
+        check(x.shape == noisy_np.shape and np.isfinite(x).all(), f"stream {name} bad")
+    clean = torch.from_numpy(clean_np)
+    p_n, p_1, p_2, p_s = (psnr(clean, torch.from_numpy(x)) for x in
+                          (noisy_np, stacks["flt1"], stacks["flt2"], stacks["smo1"]))
+    log(f"[9 stream] 1080p RGB T={t} sigma={SIGMA:g} fsmo, warm flow, checkpoints every 2 "
+        f"frames in the background: PSNR noisy {p_n:.3f} flt1 {p_1:.3f} flt2 {p_2:.3f} "
+        f"smo1 {p_s:.3f} dB; resumed after frame 1: frames 2-3 max abs diff {diff:.3e} "
+        f"(<= 1e-4)")
+    log(f"[9 stream] {secs:.3f} s with io and checkpoints, {t / secs:.3f} frames/s ({smi})")
+    check(diff <= 1e-4, "the resumed stream differs from the uninterrupted one")
+    check(p_2 >= p_n + 6.0, "streaming flt2 does not denoise by 6 dB")
+    check(p_s >= p_2 - 0.3, "streaming smo1 is worse than flt2 by more than 0.3 dB")
+    profile_slice(lambda: run_streaming(read, 0, t - 1, SIGMA, **kw), "9 stream profile", smi)
+    return launches
+
+
+def phase_cli_lsmo(smi):
+    """``nlkalman-seq --smoother lsmo`` in this process on 1080p gray PNGs."""
+    import re
+    import runpy
+    import tempfile
+
+    from bwd_nlkalman_tpu_torch.io import write_png
+
+    t = 3
+    clean, _ = make_clip(*FULL, t, SIGMA)
+    with tempfile.TemporaryDirectory() as d:
+        pat = os.path.join(d, "c-%03d.png")
+        for i in range(t):
+            write_png(pat % (i + 1), clean[i])
+        argv = sys.argv
+        sys.argv = ["nlkalman-seq", pat, "1", str(t), f"{SIGMA:g}", os.path.join(d, "out"),
+                    "--gt-pattern", pat, "--smoother", "lsmo"]
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        try:
+            runpy.run_module("bwd_nlkalman_tpu_torch.cli.nlkalman_seq", run_name="__main__")
+        except SystemExit as e:
+            check(e.code == 0, f"nlkalman-seq exited {e.code}")
+        finally:
+            sys.argv = argv
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, "10 nlkalman-seq lsmo", ("K1", "K2", "K4"))
+        path = os.path.join(d, "out", "measures")
+        check(os.path.exists(path), "nlkalman-seq wrote no measures file")
+        text = open(path).read()
+    total = {m[0]: float(m[1]) for m in
+             re.findall(r"^(\w+)-total RMSE \S+ PSNR (\S+)$", text, re.M)}
+    log(f"[10 nlkalman-seq lsmo] 1080p gray PNGs T={t}, ground-truth mode: PSNR " +
+        " ".join(f"{k} {v:.3f}" for k, v in total.items()) +
+        f" dB; {secs:.3f} s with io, {t / secs:.3f} frames/s ({smi})")
+    check(set(total) == {"flt1", "flt2", "smo1"}, f"measures hold {sorted(total)}")
+    check(total["smo1"] >= total["flt2"] - 0.3, "lsmo smo1 is worse than flt2 by 0.3 dB")
+    return launches
+
+
+def dct_share(model, noisy, t, smi):
+    """The whole-image DCT's matrix products in the DCT pyramid's run: a
+    decompose and a recompose of 1080p gray timed alone (CUDA events), and
+    the run's count of each: 3T - 2 decomposes (the noisy frame, and flt1
+    and flt2 after the first) and 3T recomposes (flt1, flt2, smo1)."""
+    from bwd_nlkalman_tpu_torch.ops.dct import dct2_image
+    from bwd_nlkalman_tpu_torch.ops.pyramid import dct_decompose, dct_recompose
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
+
+    bases = dict(model.named_buffers())
+    frame = noisy[0]
+    levels = dct_decompose(frame, model.levels, bases=bases)
+    dec_ms = cuda_ms(lambda: dct_decompose(frame, model.levels, bases=bases), 10)
+    rec_ms = cuda_ms(lambda: dct_recompose(levels, model.rec, bases), 10)
+    one_ms = cuda_ms(lambda: dct2_image(frame, bases), 10)
+    h, w = frame.shape[:2]
+    run_ms = (3 * t - 2) * dec_ms + 3 * t * rec_ms
+    log(f"[11 multiscale dct] whole-image DCT of {h}x{w} gray: {one_ms:.3f} ms "
+        f"({2 * h * w * (h + w) / one_ms / 1e9:.1f} TFLOP/s of fp32 matmul); a "
+        f"{model.levels}-level decompose {dec_ms:.3f} ms, a recompose {rec_ms:.3f} ms; "
+        f"the run's {3 * t - 2} decomposes and {3 * t} recomposes {run_ms:.1f} ms ({smi})")
+
+
+def phase_multiscale(smi):
+    """Both multiscale pyramids on 1080p gray at the automatic 3 levels."""
+    import torch
+    from bwd_nlkalman_tpu_torch.pipeline import MultiscaleDenoiser
+
+    t, (h, w) = 3, FULL
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+    out = {}
+    for pyramid in ("dct", "lz3"):
+        model = MultiscaleDenoiser(SIGMA, h, w, pyramid=pyramid)
+        check(model.levels == 3, f"{model.levels} levels at 1080p")
+        model(noisy[:2])        # warm-up
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        flt1, flt2, smo1 = model(noisy)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        tag = f"11 multiscale {pyramid}"
+        launches = read_counters(counters, tag, ("K1", "K2", "K4"))
+        for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
+            check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
+                  f"{tag} {name} bad")
+        p_n, p_1, p_2, p_s = (psnr(clean, x) for x in (noisy, flt1, flt2, smo1))
+        # two filter passes per level and frame, one smoother pass per level
+        # and frame but the last
+        want_k1 = 2 * model.levels * t + model.levels * (t - 1)
+        log(f"[{tag}] 1080p gray T={t} sigma={SIGMA:g} {model.levels} levels: PSNR noisy "
+            f"{p_n:.3f} flt1 {p_1:.3f} flt2 {p_2:.3f} smo1 {p_s:.3f} dB; K1 passes "
+            f"{launches['K1']} (3 levels: {want_k1})")
+        log(f"[{tag}] {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
+        check(p_s >= p_n + 6.0, f"{tag} smo1 does not denoise by 6 dB")
+        check(launches["K1"] == want_k1, f"{tag}: K1 ran {launches['K1']} passes")
+        profile_slice(lambda: model(noisy), f"{tag} profile", smi)
+        if pyramid == "dct":
+            dct_share(model, noisy, t, smi)
+        out[pyramid] = launches
+        del model, flt1, flt2, smo1
+        torch.cuda.empty_cache()
+    return out
 
 
 # the kernels of each, by the start of their names as torch.profiler shows them
@@ -835,6 +1108,12 @@ def main() -> int:
     launches["P"] = phase_probe()["P"]
     settle()
     phase_slice_vs_plain()
+    settle()
+    phase_stream(smi)
+    settle()
+    phase_cli_lsmo(smi)
+    settle()
+    phase_multiscale(smi)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)

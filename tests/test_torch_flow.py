@@ -116,3 +116,33 @@ def test_level_beyond_plan_raises(rng, monkeypatch):
                          lambda_=0.25)
     assert tiled == [(48, 64)]
     assert got.shape == (48, 64, 2) and torch.isfinite(got).all()
+
+
+@pytest.mark.parametrize("h,w", [(12, 16), (20, 24)])
+def test_fscale_past_the_coarsest_level(rng, monkeypatch, h, w):
+    """Where fscale reaches the pyramid's coarsest level (small frames,
+    such as a multiscale pipeline's coarse levels), no level is solved:
+    the cold flow and its carry are zero, as JAX's are. The warm flow
+    solves the level-fscale scale from a zero carry where the gate takes
+    it (20x24), and from the zero flow when the gate refuses a stale one,
+    as JAX's does (at the XLA path's check granularity, 10, so that the
+    iterates are the same)."""
+    base = _smooth_base(rng, h, w)
+    i0, i1 = base[4:4 + h, 4:4 + w], base[3:3 + h, 5:5 + w]
+    ns = tvl1.num_scales(w, h, 100, 0.5)
+    want, want_fs = j_tvl1.tvl1_flow(jnp.asarray(i0), jnp.asarray(i1), fscale=ns,
+                                     backend="xla", return_carry=True)
+    got, got_fs = tvl1.tvl1_flow(torch.from_numpy(i0), torch.from_numpy(i1),
+                                 fscale=ns, return_carry=True)
+    assert got.shape == want.shape and got_fs.shape == want_fs.shape
+    assert not got.any() and not np.asarray(want).any() and not got_fs.any()
+    monkeypatch.setattr(tvl1, "_k_check", lambda npx: 10)
+    shape = tvl1.flow_carry_shape(h, w, fscale=ns)
+    for carry in (np.zeros(shape, np.float32), np.full(shape, -9.0, np.float32)):
+        want, want_fs = j_tvl1.tvl1_flow_warm(jnp.asarray(i0), jnp.asarray(i1),
+                                              jnp.asarray(carry), fscale=ns,
+                                              backend="xla")
+        got, got_fs = tvl1.tvl1_flow_warm(torch.from_numpy(i0), torch.from_numpy(i1),
+                                          torch.from_numpy(carry), fscale=ns)
+        assert got.shape == want.shape and got_fs.shape == want_fs.shape
+        assert _epe(got, want) <= 0.05

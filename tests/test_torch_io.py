@@ -1,5 +1,5 @@
-"""The port's io, noise and ground-truth harness, its CLIs' missing-port
-exits, and the plain version of the streaming-rate probe P.
+"""The port's io, noise and ground-truth harness, its CLI helpers, and the
+plain version of the streaming-rate probe P.
 
 - Codecs: the port writes the very bytes the JAX package's pure-Python
   codecs write (``BNLK_NO_NATIVE`` keeps the JAX side off its optional
@@ -22,7 +22,7 @@ from bwd_nlkalman_tpu.cli import _common as j_common
 from bwd_nlkalman_tpu.ops.noise import awgn as j_awgn
 from bwd_nlkalman_tpu.pipeline import gt as j_gt
 from bwd_nlkalman_tpu_torch import io
-from bwd_nlkalman_tpu_torch.cli import _common, nlkalman_seq
+from bwd_nlkalman_tpu_torch.cli import _common
 from bwd_nlkalman_tpu_torch.convert import params_from_jax
 from bwd_nlkalman_tpu_torch.ops.noise import awgn
 from bwd_nlkalman_tpu_torch.pipeline import gt
@@ -83,18 +83,6 @@ def test_gt_harness_matches_jax(rng):
     assert gt.sequence_psnr(clean, noisy, 1, 2) == j_gt.sequence_psnr(clean, noisy, 1, 2)
     stacks = {"flt1": noisy, "smo1": None}
     assert gt.gt_measures(clean, stacks) == j_gt.gt_measures(clean, stacks)
-
-
-@pytest.mark.parametrize("flags", [["--smoother", "fsmo"], ["--smoother", "lsmo"],
-                                   ["--multiscale"]])
-def test_missing_ports_exit_nonzero(tmp_path, capsys, flags):
-    """Options whose pipelines are not ported stop with a message that
-    names the missing port, before any frame is read."""
-    with pytest.raises(SystemExit) as e:
-        nlkalman_seq.main([str(tmp_path / "%03d.png"), "1", "2", "20",
-                           str(tmp_path / "out"), *flags, "--device", "cpu"])
-    assert e.value.code != 0
-    assert "not ported" in capsys.readouterr().err
 
 
 def test_cli_helpers_match_jax(capsys):

@@ -47,11 +47,12 @@ def _t(a, dev):
 @pytest.mark.parametrize("band", [False, True])
 @pytest.mark.parametrize("occl", [False, True])
 @pytest.mark.parametrize("h,w", [(1, 1), (3, 3), (17, 16), (32, 40), (37, 53), (270, 480)])
-@pytest.mark.parametrize("c", [1, 2, 3, 5, 6, 8])
+@pytest.mark.parametrize("c", [1, 2, 3, 5, 6, 8, 9])
 def test_warp_kernel_matches_plain(dev, c, h, w, occl, band):
     """K4 against its plain version: every channel instance (1, 2, 3, 6,
-    and the generic one at 5 and 8), frames with no valid pixel, ragged
-    tiles, occlusion, and a band shifted by hundreds of pixels."""
+    9, the most it takes, and the generic one at 5 and 8), frames with no
+    valid pixel, ragged tiles, occlusion, and a band shifted by hundreds
+    of pixels."""
     rng = np.random.default_rng(c)
     im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
     flow = _t(noisy_flow(rng, h, w, band), dev)
@@ -261,3 +262,29 @@ def test_probe_kernel_matches_plain(dev, variant):
     want = vpu_probe.probe_plain(a, nchains, op, dtype, k=8)
     rtol = 1e-6 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, want, rtol=rtol, atol=0.0)
+
+
+def test_streaming_fsmo_kernels_match_plain(dev):
+    """Streaming fsmo on a 64x80 RGB clip through the kernels against the
+    plain versions on the card: every output's PSNR within 0.05 dB (the
+    slice's bar in chip_smoke.py), and the 9-channel warp through K4."""
+    from bwd_nlkalman_tpu_torch.pipeline.stream import StreamingDenoiser
+
+    rng = np.random.default_rng(4)
+    t, h, w = 3, 64, 80
+    fields = [np.cumsum(np.cumsum(rng.standard_normal((h + 8, w + 8)), 0), 1)
+              for _ in range(3)]
+    base = np.stack([(f - f.min()) / (f.max() - f.min()) * 175 + 40 for f in fields], -1)
+    clean = np.stack([base[i:i + h, i:i + w] for i in range(t)]).astype(np.float32)
+    noisy = _t(clean + 20 * rng.standard_normal(clean.shape).astype(np.float32), dev)
+    clean = _t(clean, dev)
+    res = {}
+    for engine in ("auto", "plain"):
+        warp_cuda.LAUNCHES_C9.reset()
+        sd = StreamingDenoiser(20.0, smoother="fsmo", engine=engine, device=dev)
+        outs = [sd.step(f) + (sd.smo,) for f in noisy]
+        res[engine] = [float(10 * torch.log10(255.0 ** 2 / torch.mean((x - clean) ** 2)))
+                       for x in (torch.stack(o) for o in zip(*outs))]
+        assert warp_cuda.LAUNCHES_C9.count == (t - 1 if engine == "auto" else 0)
+    for got, want in zip(res["auto"], res["plain"]):
+        assert abs(got - want) <= 0.05

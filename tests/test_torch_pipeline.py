@@ -156,19 +156,27 @@ def test_unknown_engine_raises(call):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A CPU run of the module and of both CLIs loads neither JAX nor any
-    module of the JAX package."""
+    """A CPU run of the modules, of a streaming step, of a multiscale call
+    and of the CLIs loads neither JAX nor any module of the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "import bwd_nlkalman_tpu_torch as P\n"
-        "from bwd_nlkalman_tpu_torch import convert\n"
-        "from bwd_nlkalman_tpu_torch.cli import nlkalman_seq, tvl1flow\n"
+        "from bwd_nlkalman_tpu_torch import convert, models\n"
+        "from bwd_nlkalman_tpu_torch.cli import (msnlkalman_lz3_seq, msnlkalman_seq,"
+        " nlkalman_seq, tvl1flow)\n"
         "from bwd_nlkalman_tpu_torch.io import write_png\n"
+        "from bwd_nlkalman_tpu_torch.ops import pyramid\n"
+        "from bwd_nlkalman_tpu_torch.pipeline import multiscale, stream\n"
         "from bwd_nlkalman_tpu_torch.tools import k1_bench, vpu_probe\n"
         "x = torch.from_numpy(np.random.default_rng(0).uniform(0, 255, (2, 24, 32, 1))"
         ".astype(np.float32))\n"
         "out = P.NLKalmanDenoiser(20.0, 24, 32, device='cpu')(x)\n"
         "assert all(torch.isfinite(o).all() for o in out)\n"
+        "sd = P.StreamingDenoiser(20.0, smoother='fsmo', device='cpu')\n"
+        "assert all(torch.isfinite(o).all() for f in x for o in sd.step(f))\n"
+        "out = P.MultiscaleDenoiser(20.0, 24, 32, levels=2, pyramid='lz3', device='cpu')(x)\n"
+        "assert all(torch.isfinite(o).all() for o in out)\n"
+        "assert set(P.kernel_counters()) == {'K1', 'K2', 'K3', 'K4', 'K4c9', 'P'}\n"
         "d = sys.argv[1]\n"
         "for i in range(2):\n"
         "    write_png(f'{d}/f-{i}.png', x[i].numpy())\n"
@@ -222,7 +230,7 @@ def test_cpu_run_launches_no_kernel():
     seq.denoise_sequence(torch.from_numpy(noisy), SIGMA,
                          flow_cfg=seq.FlowConfig(warm_start=True))
     assert {k: c.count for k, c in kernel_counters().items()} == {
-        "K1": 0, "K2": 0, "K3": 0, "K4": 0, "P": 0}
+        "K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4c9": 0, "P": 0}
 
 
 def test_non_cpu_non_cuda_device_raises():
