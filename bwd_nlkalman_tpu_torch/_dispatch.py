@@ -12,12 +12,21 @@ import torch
 
 
 ENGINES = ("auto", "plain")
+WINDOW_DTYPES = ("float32", "bfloat16")
 
 
 def check_engine(engine: str) -> None:
     """Raise unless ``engine`` is "auto" (kernels on CUDA tensors) or "plain"."""
     if engine not in ENGINES:
         raise ValueError(f"engine must be 'auto' or 'plain', got {engine!r}")
+
+
+def check_window_dtype(window_dtype: str) -> None:
+    """Raise unless ``window_dtype`` is "float32" or "bfloat16": the type
+    the NLK pass holds its DCT bands in."""
+    if window_dtype not in WINDOW_DTYPES:
+        raise ValueError(f"window_dtype must be one of {WINDOW_DTYPES}, "
+                         f"got {window_dtype!r}")
 
 
 def entry_device(device, who: str) -> torch.device:

@@ -21,6 +21,24 @@ def device_arg(name: str):
     return dev
 
 
+def split_device(argv):
+    """(positional args, device name) of a command with positional
+    arguments: ``--device X`` or ``--device=X`` may stand anywhere among
+    them (default ``cuda``)."""
+    rest, device = [], "cuda"
+    it = iter(argv)
+    for a in it:
+        if a == "--device":
+            device = next(it, None)
+            if device is None:
+                raise ValueError("--device needs a value")
+        elif a.startswith("--device="):
+            device = a.split("=", 1)[1]
+        else:
+            rest.append(a)
+    return rest, device
+
+
 def add_prms_group(ap: argparse.ArgumentParser, prefix: str, title: str):
     """Parameter flags named like the reference (src/main-flt.c:83-113)."""
     g = ap.add_argument_group(title)
@@ -62,6 +80,35 @@ def check_size(name: str, arr, ref, ref_name: str = "input",
             file=sys.stderr,
         )
         raise SystemExit(1)
+
+
+def print_verbose_params(io_in: dict, io_out: dict, groups: dict) -> None:
+    """The -v parameter dump of the reference binaries
+    (src/main-flt.c:156-212, src/main-smo.c): input paths, output paths,
+    then each pass's resolved parameters."""
+    print("data input:")
+    for k, v in io_in.items():
+        print(f"\t{k:<13s} {v}")
+    print()
+    print("data output:")
+    for k, v in io_out.items():
+        print(f"\t{k:<13s} {v}")
+    print()
+    for title, p in groups.items():
+        print(f"{title}:")
+        print(f"\tpatch      {p.patch_sz}")
+        print(f"\tsearch_x   {p.search_sz_x}")
+        print(f"\tsearch_t   {p.search_sz_t}")
+        if p.dista_th > 0:
+            print(f"\tdth        {p.dista_th:g}")
+        else:
+            print(f"\tnp_x       {p.npatches_x}")
+            print(f"\tnp_t       {p.npatches_t}")
+            print(f"\tnp_tagg    {p.npatches_tagg}")
+        print(f"\tlambda     {p.dista_lambda:g}")
+        print(f"\tbeta_x     {p.beta_x:g}")
+        print(f"\tbeta_t     {p.beta_t:g}")
+        print()
 
 
 def prms_from_args(args, prefix: str) -> NLKParams:

@@ -15,7 +15,7 @@ import sys
 import numpy as np
 import torch
 
-from ._common import device_arg
+from ._common import device_arg, split_device
 from ..flow import tvl1_flow
 from ..io import read_image, write_flo
 
@@ -26,27 +26,10 @@ USAGE = ("Usage: tvl1flow I0 I1 [out nproc tau lambda theta nscales fscale "
          "zfactor nwarps epsilon verbose] [--device cuda|cpu]")
 
 
-def _split_device(argv):
-    """(positional args, device name): ``--device X`` or ``--device=X``
-    may stand anywhere among the positional arguments."""
-    rest, device = [], "cuda"
-    it = iter(argv)
-    for a in it:
-        if a == "--device":
-            device = next(it, None)
-            if device is None:
-                raise ValueError("--device needs a value")
-        elif a.startswith("--device="):
-            device = a.split("=", 1)[1]
-        else:
-            rest.append(a)
-    return rest, device
-
-
 def main(argv=None):
     argv = list(sys.argv[1:] if argv is None else argv)
     try:
-        argv, device = _split_device(argv)
+        argv, device = split_device(argv)
     except ValueError as e:
         print(f"error: {e}\n{USAGE}", file=sys.stderr)
         return 1

@@ -5,7 +5,22 @@ Port of ``bwd_nlkalman_tpu.core.engine`` (``dense_pass_v2`` :101,
 :func:`dense_pass` launches the hand-written kernel K1
 (``engine_cuda.py``); on CPU tensors it runs :func:`dense_pass_v2` below,
 which processes the site grid in blocks of site rows so that its window
-tensors stay small.
+tensors stay small. Which passes K1 takes is decided before any launch by
+``core.nlkalman.k1_supported``; the frame passes route the rest to the
+plain pass.
+
+``window_dtype="bfloat16"`` holds the x-, d- and n-bands (the DCT of
+every patch of the distance source, the previous frame and the noisy
+frame) rounded to bfloat16, as the TPU kernel's scratch holds them
+(``engine_pallas.py:1465-1469``); everything computed from them is
+float32. The JAX package's XLA engine rounds only the x and d windows
+and computes their differences in bfloat16, another function; K1 and
+this version follow the TPU kernel.
+
+The v2-only variants of the JAX package's XLA engine are computed here
+only, as JAX runs them only there: ``dista_lambda != 1`` (LAMBDA_DISTANCE,
+JAX engine.py:267-279) and ``dista_th > 0`` (threshold selection with the
+noise correction and no group caps, :284-314).
 
 Semantics per stride-psz/2 site (core/nlkalman.py module docstring):
 distances on the x-band (``basic`` when given, else ``cur``) over the
@@ -22,7 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._dispatch import use_kernel
+from .._dispatch import check_window_dtype, use_kernel
 from ..ops.bases import basis
 from ..ops.dct import _ortho_basis_kron_np, _ortho_basis_np, dct_image_all_patches
 from ..ops.windows import window_np
@@ -65,18 +80,26 @@ def nlk_bases(psz: int) -> dict:
             ("window", psz): window_np}
 
 
-def check_supported(prms: NLKParams) -> None:
-    if prms.dista_lambda != 1.0 or prms.dista_th > 0.0:
-        raise NotImplementedError(
-            "dista_lambda != 1 / dista_th > 0 are v2-only NLK variants, "
-            "not ported yet")
+def squared_distances(diff: torch.Tensor, f: int) -> torch.Tensor:
+    """Mean squared difference over the last axis (F coefficients): the
+    patch distance. ``tools.k1_bench.k1_order`` swaps in K1's summation
+    order to hold the kernel to this pass at selection ties."""
+    return torch.sum(diff * diff, dim=-1) * (1.0 / f)
+
+
+def round_band(band: torch.Tensor, window_dtype: str) -> torch.Tensor:
+    """A DCT band as a pass holds it: through bfloat16 (round to nearest
+    even) and back for ``window_dtype="bfloat16"``, as it is for float32."""
+    check_window_dtype(window_dtype)
+    if window_dtype == "bfloat16":
+        return band.to(torch.bfloat16).to(band.dtype)
+    return band
 
 
 def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
                   mode: str, has_prev: bool, has_basic: bool,
-                  bases=None) -> torch.Tensor:
+                  bases=None, window_dtype: str = "float32") -> torch.Tensor:
     """Plain version of K1: one filter or smoother pass over (H, W, C) frames."""
-    check_supported(prms)
     h, w, ch = cur.shape
     dev = cur.device
     psz = prms.patch_sz
@@ -94,10 +117,15 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     nx = (ww - 1) // step + 1
 
     x_img = basic if has_basic else cur
-    xd = dct_image_all_patches(x_img, psz).reshape(hh * ww, f)
-    nd = dct_image_all_patches(cur, psz).reshape(hh * ww, f) if has_basic else xd
+
+    def band(img):
+        return round_band(dct_image_all_patches(img, psz).reshape(hh * ww, f),
+                          window_dtype)
+
+    xd = band(x_img)
+    nd = band(cur) if has_basic else xd
     if has_prev:
-        dd = dct_image_all_patches(prev, psz).reshape(hh * ww, f)
+        dd = band(prev)
         pval = patch_validity(prev_valid, psz).reshape(-1)
     else:
         dd = pval = None
@@ -108,6 +136,9 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     ox_t = torch.as_tensor(ox.reshape(-1), device=dev)
     in_rad_t = (oy_t.abs() <= rad_t) & (ox_t.abs() <= rad_t)
 
+    lam, dista_th = prms.dista_lambda, prms.dista_th
+    # threshold selection has no group-size caps (the non-K build)
+    nagg_f = float(nagg) if dista_th <= 0.0 else float(n_off1 * n_off1)
     n_acc = 3 if mode == "smooth" else 2
     g_acc = torch.zeros((hh * ww, n_acc * f), dtype=cur.dtype, device=dev)
     w_acc = torch.zeros((hh * ww,), dtype=cur.dtype, device=dev)
@@ -123,7 +154,7 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
         wx = xd[qidx]                                         # (O, R, nx, F)
         xp = wx[centre]
         wc = wx - xp[None]
-        dist = torch.sum(wc * wc, dim=-1) * (1.0 / f)
+        dist = squared_distances(wc, f)
         if has_prev:
             wd = dd[qidx]
             wv = pval[qidx] & cand
@@ -131,18 +162,35 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
             if mode == "filter":
                 cand = cand & torch.where(prev_p[None], in_rad_t[:, None, None], True)
             prevc = wv & cand & prev_p[None]
+            if lam != 1.0:
+                # LAMBDA_DISTANCE (src/nlkalman.c:647-684): where both the
+                # centre's and the candidate's previous patches are valid,
+                # blend in the previous frame's distance
+                dd0 = wd - wd[centre][None]
+                dist_d = torch.sum(dd0 * dd0, dim=-1) * (1.0 / f)
+                dist = torch.where(wv & prev_p[None], lam * dist + (1.0 - lam) * dist_d,
+                                   dist)
         else:
             prev_p = torch.zeros_like(cand[0])
             prevc = torch.zeros_like(cand)
+        if dista_th > 0.0:
+            # noise-corrected clamped distance (src/nlkalman.c:633)
+            dist = torch.clamp(dist - (0.0 if has_basic else 2.0 * sigma2), min=0.0)
 
         bits = torch.where(cand, dist.view(torch.int32), _INF_BITS)
-        pbits = torch.where(prevc, bits, _INF_BITS)
         s_shape = bits.shape[1:]
-        k1 = torch.where(prev_p, np_t, np_x).reshape(-1)
-        kn = torch.full_like(k1, nagg)
-        th1 = _kth_smallest_bits(bits.reshape(bits.shape[0], -1), k1).reshape(s_shape)
-        thp = _kth_smallest_bits(pbits.reshape(bits.shape[0], -1), kn).reshape(s_shape)
-        tha = _kth_smallest_bits(bits.reshape(bits.shape[0], -1), kn).reshape(s_shape)
+        if dista_th > 0.0:
+            # every patch within dista_th^2 (src/nlkalman.c:712-717)
+            th1 = thp = tha = torch.full(s_shape, int(np.float32(dista_th * dista_th)
+                                                      .view(np.int32)),
+                                         dtype=torch.int32, device=dev)
+        else:
+            pbits = torch.where(prevc, bits, _INF_BITS)
+            k1 = torch.where(prev_p, np_t, np_x).reshape(-1)
+            kn = torch.full_like(k1, nagg)
+            th1 = _kth_smallest_bits(bits.reshape(bits.shape[0], -1), k1).reshape(s_shape)
+            thp = _kth_smallest_bits(pbits.reshape(bits.shape[0], -1), kn).reshape(s_shape)
+            tha = _kth_smallest_bits(bits.reshape(bits.shape[0], -1), kn).reshape(s_shape)
         sel1 = cand & (bits <= th1[None])
         m0sel = prevc & (bits <= thp[None]) & sel1
         memsp = sel1 & (bits <= tha[None])
@@ -164,7 +212,7 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
             v0 = torch.clamp(e0 - m0vc * m0vc, min=0.0)
             dxw = wd - wx
             v01 = torch.einsum("ors,orsf->rsf", spf, dxw * dxw) / np0s
-            m0n = torch.clamp(np0s, max=float(nagg))
+            m0n = torch.clamp(np0s, max=nagg_f)
             m0 = torch.einsum("ors,orsf->rsf", m0sel.to(cur.dtype), wd) / m0n
         else:
             v0 = v01 = m0 = torch.zeros_like(v1)
@@ -180,7 +228,7 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
             a = torch.where(temporal, a_t, a_x)
             m_ref = torch.where(temporal, m0, m1_mean)
             mem = torch.where(temporal[None, ..., 0], m0sel, memsp)
-            nagg_eff = torch.clamp(torch.where(np0 > 0, np0, np1), max=float(nagg))
+            nagg_eff = torch.clamp(torch.where(np0 > 0, np0, np1), max=nagg_f)
             vp = torch.where(temporal[..., 0], vp_t, vp_x) * nagg_eff
             wgt = 1.0 / torch.clamp(vp, min=1e-6)
             specs = torch.cat([a, (1.0 - a) * m_ref], dim=-1)
@@ -190,7 +238,7 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
             a = torch.where(denom > 0.0, v1 / torch.clamp(denom, min=1e-30), 0.0)
             vp = torch.sum((1.0 - a * a) * v1
                            + a * a * torch.clamp(v0 - b * v01, min=0.0), dim=-1)
-            vp = vp * torch.clamp(np0, max=float(nagg))
+            vp = vp * torch.clamp(np0, max=nagg_f)
             wgt = 1.0 / torch.clamp(vp, min=1e-6)
             mem = m0sel
             specs = torch.cat([1.0 - a, torch.zeros_like(a), a], dim=-1)
@@ -242,12 +290,15 @@ def finalize_fields(fields, w_field, nd, dd, mode, psz, cur, bases=None):
 
 def dense_pass(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
                mode: str, has_prev: bool, has_basic: bool,
-               engine: str = "auto", bases=None) -> torch.Tensor:
+               engine: str = "auto", bases=None,
+               window_dtype: str = "float32") -> torch.Tensor:
     """One NLK pass: K1 on CUDA tensors, :func:`dense_pass_v2` on CPU tensors.
 
-    ``engine="plain"`` runs the plain version on any device."""
+    ``engine="plain"`` runs the plain version on any device. K1 raises for
+    a pass it does not take; the frame passes of ``core.nlkalman`` decide
+    the engine first."""
     if use_kernel(cur, engine):
         return dense_pass_cuda(cur, prev, prev_valid, basic, sigma, prms, mode,
-                               has_prev, has_basic, bases=bases)
+                               has_prev, has_basic, bases, window_dtype)
     return dense_pass_v2(cur, prev, prev_valid, basic, sigma, prms, mode,
-                         has_prev, has_basic, bases=bases)
+                         has_prev, has_basic, bases, window_dtype)

@@ -16,7 +16,8 @@ import math
 import torch
 
 from ..ops.gaussian import blur_matrix_np, gaussian_blur
-from ..ops.warp import bicubic_warp
+from ..ops.grad import forward_gradient
+from ..ops.warp import bicubic_warp, warp_bicubic_zero
 from ..ops.zoom import (_resample_matrix_np, _zoom_out_matrix_np, zoom_in,
                         zoom_in_keys, zoom_out, zoom_out_keys, zoom_size)
 from .tvl1_fused import fused_level_supported, tvl1_single_scale_fused
@@ -173,12 +174,13 @@ def tvl1_flow(i0, i1, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
     return (u, u_fs) if return_carry else u
 
 
-def warm_gate_ok(a, b, u0, engine: str = "auto") -> bool:
-    """Residual gate of the warm-start carry (flow/tvl1.py:333).
+def warm_gate(a, b, u0, engine: str = "auto"):
+    """Residual gate of the warm-start carry (flow/tvl1.py:333) as tensors:
+    (ok, r_warm, r_zero).
 
     Mean L1 residual of b warped by the carry against the zero-flow
     residual, both over the in-frame footprint of the warp (the warp's
-    own validity mask). One host sync: the branch is taken in Python.
+    own validity mask); a carry that evicts most of the frame fails.
     """
     hh, ww = a.shape
     bw, valid = bicubic_warp(b[..., None].contiguous(), u0.contiguous(), None, engine)
@@ -187,7 +189,13 @@ def warm_gate_ok(a, b, u0, engine: str = "auto") -> bool:
     n = torch.clamp(vs, min=1.0)
     r_warm = torch.sum(torch.abs(a - bw[..., 0]) * v) / n
     r_zero = torch.sum(torch.abs(a - b) * v) / n
-    return bool((r_warm <= r_zero) & (vs >= 0.5 * hh * ww))
+    return (r_warm <= r_zero) & (vs >= 0.5 * hh * ww), r_warm, r_zero
+
+
+def warm_gate_ok(a, b, u0, engine: str = "auto") -> bool:
+    """:func:`warm_gate`'s verdict. One host sync: the branch is taken in
+    Python."""
+    return bool(warm_gate(a, b, u0, engine)[0])
 
 
 def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
@@ -229,3 +237,35 @@ def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
             pyr.append((zoom_out(pa, zfactor, bases), zoom_out(pb, zfactor, bases)))
         u_fs = _coarse_to_fine(pyr, sizes[fs:], solve, zfactor, bases)
     return _upsample_chain(u_fs, sizes, fs, zfactor, bases), u_fs
+
+
+def warm_gate_probe(i0, i1, u_carry, fscale: int = 0, zfactor: float = 0.5,
+                    nscales: int = 100, bases=None, engine: str = "auto"):
+    """The residual gate :func:`tvl1_flow_warm` applies, on its own (JAX
+    flow/tvl1.py:474): the warm path's image preparation (joint
+    normalisation, presmoothing, the zoom chain to the fscale level), then
+    (ok, r_warm, r_zero) of :func:`warm_gate` for the carry, so that a
+    caller can check which branch a warm step took."""
+    a, b = _prep_pair(i0, i1, bases)
+    h, w = a.shape
+    ns = num_scales(w, h, nscales, zfactor)
+    for _ in range(min(fscale, ns)):
+        a, b = zoom_out(a, zfactor, bases), zoom_out(b, zfactor, bases)
+    return warm_gate(a, b, u_carry.to(torch.float32), engine)
+
+
+def flow_energy(i0, i1, flow, lambda_: float = 0.15,
+                engine: str = "auto") -> torch.Tensor:
+    """TV-L1 energy (energy_optic_flow, tvl1flow_lib.c:43-85; JAX
+    flow/tvl1.py:496), a test oracle: the mean of the full TV of both flow
+    components plus lambda times |I1 warped - I0| (the reference sums the
+    first component's gradients only; the JAX package, and this copy, keep
+    the full TV)."""
+    i0, i1 = luma(i0.float()), luma(i1.float())
+    u1, u2 = flow[..., 0], flow[..., 1]
+    i1w = warp_bicubic_zero(i1, u1, u2, engine)
+    diff = torch.abs(i1w - i0)
+    u1x, u1y = forward_gradient(u1)
+    u2x, u2y = forward_gradient(u2)
+    tv = torch.abs(u1x) + torch.abs(u1y) + torch.abs(u2x) + torch.abs(u2y)
+    return torch.mean(tv + lambda_ * diff)

@@ -14,10 +14,8 @@ the variant's pipeline and sigma's default parameters:
 
 from __future__ import annotations
 
-from .._dispatch import entry_device, runs_kernels
-from ..core.engine_cuda import check_params
-from ..params import FilterMode, default_params
-from ..pipeline.multiscale import PYRAMIDS, MultiscaleDenoiser, level_sigmas
+from .._dispatch import check_window_dtype, entry_device
+from ..pipeline.multiscale import PYRAMIDS, MultiscaleDenoiser
 from ..pipeline.sequence import FlowConfig, NLKalmanDenoiser
 
 # name -> (NLKalmanDenoiser's smoother or MultiscaleDenoiser's pyramid,
@@ -30,38 +28,28 @@ MODELS = {
     "msnlk": ("dct", 2),
     "msnlk-lz3": ("lz3", 2),
 }
-MAX_LEVELS = 4      # the most levels the multiscale scripts pick (8 Mpx and up)
-
-
-def _passes(kind: str, sigma: float):
-    """The (NLKParams, mode) of every pass a variant can run: a multiscale
-    variant's at every level count it can pick."""
-    sigmas = level_sigmas(sigma, MAX_LEVELS) if kind in PYRAMIDS else [sigma]
-    passes = [(default_params(s, m), "filter") for s in sigmas
-              for m in (FilterMode.FLT1, FilterMode.FLT2)]
-    return passes + [(default_params(sigma, FilterMode.SMO1), "smooth")]
 
 
 def get_model(name: str, sigma: float, flow_cfg: FlowConfig | None = None,
-              device="cuda"):
+              device="cuda", window_dtype: str = "float32"):
     """``fn(noisy (T, H, W, C) tensor) -> denoised`` for a registered
     variant at noise level ``sigma`` (TRAIN14 defaults).
 
     ``flow_cfg``: the single-scale variants' flow (default: the
     reference's); the multiscale variants use their scripts' own. Runs on
     ``device``, the card unless the caller asks for the CPU: a card that
-    is not there raises here, as do parameters K1 does not take where the
-    kernels run. The variant's module, with the constants of a frame
-    size, is built at the first call with that size; inputs must lie on
-    ``device``. An unknown name raises KeyError.
+    is not there raises here. ``window_dtype`` is the NLK passes' band
+    type. The variant's module, with the constants of a frame size, is
+    built at the first call with that size (where it runs the kernels, a
+    pass K1 does not take is warned of then, and runs the plain pass);
+    inputs must lie on ``device``. An unknown name raises KeyError.
     """
     if name not in MODELS:
         raise KeyError(f"unknown model {name!r}; available: {sorted(MODELS)}")
     kind, out = MODELS[name]
     sigma = float(sigma)
     dev = entry_device(device, "get_model")
-    if runs_kernels(dev, "auto"):
-        check_params(_passes(kind, sigma))
+    check_window_dtype(window_dtype)
     cfg = flow_cfg or FlowConfig()
     modules = {}
 
@@ -69,9 +57,11 @@ def get_model(name: str, sigma: float, flow_cfg: FlowConfig | None = None,
         h, w = noisy.shape[1:3]
         if (h, w) not in modules:
             modules[(h, w)] = (
-                MultiscaleDenoiser(sigma, h, w, pyramid=kind, device=dev)
+                MultiscaleDenoiser(sigma, h, w, pyramid=kind, device=dev,
+                                   window_dtype=window_dtype)
                 if kind in PYRAMIDS else
-                NLKalmanDenoiser(sigma, h, w, cfg, device=dev, smoother=kind))
+                NLKalmanDenoiser(sigma, h, w, cfg, device=dev, smoother=kind,
+                                 window_dtype=window_dtype))
         return modules[(h, w)](noisy)[out]
 
     run.__name__ = f"{name}_sigma{sigma:g}"

@@ -42,7 +42,7 @@ def level_sigmas(sigma: float, levels: int, ratio: float = 2.0) -> list[float]:
 
 
 def _filter_sequence(noisy, sigma, levels, decompose, recompose, flow_cfg,
-                     ratio, engine, bases):
+                     ratio, engine, bases, window_dtype="float32"):
     """Multiscale forward filtering with a pyramid's decompose/recompose:
     (flt1, flt2, flt2_levels), the last a tuple of per-level flt2 stacks."""
     sig = level_sigmas(sigma, levels, ratio)
@@ -59,7 +59,7 @@ def _filter_sequence(noisy, sigma, levels, decompose, recompose, flow_cfg,
         for lv in range(levels - 1, -1, -1):
             f11[lv], f21[lv] = filter_frame_pair(pyr_n[lv], pyr_f1[lv], pyr_f2[lv],
                                                  sig[lv], p1[lv], p2[lv], flow_cfg,
-                                                 engine, bases)
+                                                 engine, bases, window_dtype)
         flt1.append(recompose(f11) if levels > 1 else f11[0])
         flt2.append(recompose(f21) if levels > 1 else f21[0])
         per_level.append(f21)
@@ -68,20 +68,22 @@ def _filter_sequence(noisy, sigma, levels, decompose, recompose, flow_cfg,
 
 
 def ms_filter_sequence(noisy, sigma, levels=None, rec=0.7, ratio=2.0,
-                       engine="auto", bases=None):
+                       engine="auto", bases=None, window_dtype="float32"):
     """DCT-pyramid forward filtering of (T, H, W, C) frames -> (flt1, flt2,
     flt2_levels)."""
     levels = levels or auto_pyramid_levels(*noisy.shape[1:3])
     return _filter_sequence(
         noisy, sigma, levels, lambda x: dct_decompose(x, levels, ratio, bases),
-        lambda lv: dct_recompose(lv, rec, bases), MS_FLOW, ratio, engine, bases)
+        lambda lv: dct_recompose(lv, rec, bases), MS_FLOW, ratio, engine, bases,
+        window_dtype)
 
 
-def ms_smooth_sequence(flt2_levels, sigma, rec=0.7, engine="auto", bases=None):
+def ms_smooth_sequence(flt2_levels, sigma, rec=0.7, engine="auto", bases=None,
+                       window_dtype="float32"):
     """DCT-pyramid backward smoothing: each level's stack smoothed with the
     full sigma, then each frame recomposed -> (T, H, W, C)."""
     ps = default_params(sigma, FilterMode.SMO1)
-    smo = [smooth_sequence(stack, sigma, ps, MS_FLOW, engine, bases)
+    smo = [smooth_sequence(stack, sigma, ps, MS_FLOW, engine, bases, window_dtype)
            for stack in flt2_levels]
     if len(smo) == 1:
         return smo[0]
@@ -90,18 +92,19 @@ def ms_smooth_sequence(flt2_levels, sigma, rec=0.7, engine="auto", bases=None):
 
 
 def lz3_filter_sequence(noisy, sigma, levels=None, rec=0.7, engine="auto",
-                        bases=None):
+                        bases=None, window_dtype="float32"):
     """Lanczos-3 forward filtering (scripts/msnlkalman-lz3-seq.sh:59-128);
     the previous outputs are re-decomposed every frame -> (flt1, flt2,
     flt2_levels)."""
     levels = levels or auto_pyramid_levels(*noisy.shape[1:3])
     return _filter_sequence(
         noisy, sigma, levels, lambda x: lanczos3_decompose(x, levels),
-        lambda lv: lanczos3_recompose(lv, rec, bases), LZ3_FLOW, 2.0, engine, bases)
+        lambda lv: lanczos3_recompose(lv, rec, bases), LZ3_FLOW, 2.0, engine, bases,
+        window_dtype)
 
 
 def lz3_smooth_sequence(flt2, flt2_levels, sigma, rec=0.7, engine="auto",
-                        bases=None):
+                        bases=None, window_dtype="float32"):
     """Lanczos-3 backward smoothing (scripts/msnlkalman-lz3-seq.sh:135-190):
     each step decomposes the recomposed smoothed frame t+1 and smooths
     every level of frame t against it, with the full sigma."""
@@ -115,18 +118,19 @@ def lz3_smooth_sequence(flt2, flt2_levels, sigma, rec=0.7, engine="auto",
         smo_l = [None] * levels
         for lv in range(levels - 1, -1, -1):
             smo_l[lv] = smooth_pair(flt2_levels[lv][t], pyr_s0[lv], sigma, ps,
-                                    LZ3_FLOW, engine, bases)
+                                    LZ3_FLOW, engine, bases, window_dtype)
         smo[t] = lanczos3_recompose(smo_l, rec, bases) if levels > 1 else smo_l[0]
     return torch.stack(smo)
 
 
 def ms_denoise_sequence(noisy, sigma, levels=None, rec=0.7, smoothing=True,
-                        pyramid: str = "dct", engine="auto", bases=None):
+                        pyramid: str = "dct", engine="auto", bases=None,
+                        window_dtype="float32"):
     """The whole multiscale pipeline: (flt1, flt2, smo1), smo1 None when
     ``smoothing`` is False. ``pyramid="lz3"`` is msnlkalman-lz3-seq."""
     if pyramid not in PYRAMIDS:
         raise ValueError(f"pyramid must be one of {PYRAMIDS}, got {pyramid!r}")
-    kw = dict(engine=engine, bases=bases)
+    kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
     if pyramid == "lz3":
         flt1, flt2, flt2_levels = lz3_filter_sequence(noisy, sigma, levels, rec, **kw)
         smo1 = lz3_smooth_sequence(flt2, flt2_levels, sigma, rec, **kw) \
@@ -163,32 +167,35 @@ class MultiscaleDenoiser(PipelineModule):
     whole-image DCT bases (the DCT pyramid) or the recompose blur (lz3),
     and each level's flow and NLK constants, built on ``device``, the card
     unless the caller asks for the CPU; a card that is not there raises.
-    Where the module runs the kernels, the levels' parameters K1 does not
-    take raise here, and a channel count it does not take at the first
-    frame, before any launch.
+    ``window_dtype`` is the NLK passes' band type; where the module runs
+    the kernels, a level's pass K1 does not take runs the plain pass and
+    is warned of at the first frame, before any launch.
     """
 
     def __init__(self, sigma: float, height: int, width: int,
                  levels: int | None = None, pyramid: str = "dct",
                  rec: float = 0.7, smoothing: bool = True, engine: str = "auto",
-                 device="cuda"):
+                 device="cuda", window_dtype: str = "float32"):
         super().__init__()
         if pyramid not in PYRAMIDS:
             raise ValueError(f"pyramid must be one of {PYRAMIDS}, got {pyramid!r}")
         self.sigma = float(sigma)
         self.levels = levels or auto_pyramid_levels(height, width)
         self.pyramid, self.rec, self.smoothing = pyramid, rec, smoothing
-        passes = [(default_params(s, m), "filter")
-                  for s in level_sigmas(self.sigma, self.levels)
+        sizes = (lanczos3_sizes(height, width, self.levels) if pyramid == "lz3"
+                 else pyramid_sizes(height, width, self.levels))
+        ps = default_params(self.sigma, FilterMode.SMO1)
+        passes = [(default_params(s, m), "filter", lh, lw)
+                  for s, (lh, lw) in zip(level_sigmas(self.sigma, self.levels), sizes)
                   for m in (FilterMode.FLT1, FilterMode.FLT2)]
-        passes.append((default_params(self.sigma, FilterMode.SMO1), "smooth"))
+        passes += [(ps, "smooth", lh, lw) for lh, lw in sizes]
         self._setup("MultiscaleDenoiser", height, width, engine, device, passes,
                     multiscale_bases(height, width, self.levels, pyramid,
-                                     [p for p, _ in passes], rec))
+                                     [p[0] for p in passes], rec), window_dtype)
 
     @torch.no_grad()
     def forward(self, noisy: torch.Tensor):
         bases = self.bases(noisy)
         return ms_denoise_sequence(noisy.to(torch.float32).contiguous(), self.sigma,
                                    self.levels, self.rec, self.smoothing,
-                                   self.pyramid, self.engine, bases)
+                                   self.pyramid, self.engine, bases, self.window_dtype)

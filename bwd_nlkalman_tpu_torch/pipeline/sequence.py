@@ -26,10 +26,10 @@ import dataclasses
 import torch
 from torch import nn
 
-from .._dispatch import check_engine, entry_device, runs_kernels
+from .._dispatch import check_engine, check_window_dtype, entry_device, runs_kernels
 from ..core import nlkalman_filter_frame, nlkalman_smooth_frame
 from ..core.engine import nlk_bases
-from ..core.engine_cuda import check_params
+from ..core.nlkalman import note_plain_routes
 from ..flow.occlusion import occlusion_mask
 from ..flow.tvl1 import flow_bases, luma, tvl1_flow, tvl1_flow_warm
 from ..ops.bases import make_bases
@@ -79,7 +79,7 @@ class FlowConfig:
 
 
 def _warp_passes(noisy, prevs, flow, occ_th, sigma, p1, p2, engine="auto",
-                 bases=None):
+                 bases=None, window_dtype="float32"):
     """The two filter passes of ``noisy`` given the backward flow and the
     previous outputs ``prevs`` (RGB: flt1, flt2 and, for fsmo, smo). All
     of them ride one warp: same flow, same validity. Returns (f11, f21) in
@@ -89,74 +89,74 @@ def _warp_passes(noisy, prevs, flow, occ_th, sigma, p1, p2, engine="auto",
     c = noisy.shape[-1]
     wt, v1 = warp_bicubic_nan(torch.cat([rgb2opp(p) for p in prevs], dim=-1),
                               flow, occ, engine=engine)
-    f11 = nlkalman_filter_frame(n_opp, wt[..., :c], v1, None, sigma, p1,
-                                engine=engine, bases=bases)
-    f21 = nlkalman_filter_frame(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2,
-                                engine=engine, bases=bases)
+    kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
+    f11 = nlkalman_filter_frame(n_opp, wt[..., :c], v1, None, sigma, p1, **kw)
+    f21 = nlkalman_filter_frame(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2, **kw)
     return f11, f21, wt[..., 2 * c:], v1
 
 
 def _filter_with_flow(noisy, flt1_prev, flt2_prev, flow, occ_th, sigma, p1, p2,
-                      engine="auto", bases=None):
+                      engine="auto", bases=None, window_dtype="float32"):
     """Two-pass filtering given an already-computed backward flow."""
     f11, f21, _, _ = _warp_passes(noisy, (flt1_prev, flt2_prev), flow, occ_th,
-                                  sigma, p1, p2, engine, bases)
+                                  sigma, p1, p2, engine, bases, window_dtype)
     return opp2rgb(f11), opp2rgb(f21)
 
 
 def fsmo_step(noisy, flt1_prev, flt2_prev, smo_prev, flow, occ_th, sigma, p1,
-              p2, ps, engine="auto", bases=None):
+              p2, ps, engine="auto", bases=None, window_dtype="float32"):
     """One fsmo step (JAX sequence.py:364-385) given the backward flow:
     the two filter passes and the smoother pass of the current frame
     against smo_prev, all three priors warped in one call. The smoother
     takes the second pass's output in OPP as it comes, not through an RGB
     round trip. Returns (flt1, flt2, smo) in RGB."""
     f11, f21, ws, v1 = _warp_passes(noisy, (flt1_prev, flt2_prev, smo_prev),
-                                    flow, occ_th, sigma, p1, p2, engine, bases)
+                                    flow, occ_th, sigma, p1, p2, engine, bases,
+                                    window_dtype)
     smo = nlkalman_smooth_frame(f21, ws, v1, sigma, ps, engine=engine,
-                                bases=bases)
+                                bases=bases, window_dtype=window_dtype)
     return opp2rgb(f11), opp2rgb(f21), opp2rgb(smo)
 
 
 def smooth_with_flow(frame_flt2, smo_next, flow, occ_th, sigma, ps,
-                     engine="auto", bases=None):
+                     engine="auto", bases=None, window_dtype="float32"):
     """One smoother pass of ``frame_flt2`` against ``smo_next`` warped
     along ``flow`` (RGB in and out)."""
     occ = occlusion_mask(flow, occ_th)
     w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, occ, engine=engine)
     return opp2rgb(nlkalman_smooth_frame(rgb2opp(frame_flt2), w0, v0, sigma,
-                                         ps, engine=engine, bases=bases))
+                                         ps, engine=engine, bases=bases,
+                                         window_dtype=window_dtype))
 
 
 def smooth_pair(frame, nxt, sigma, ps, flow_cfg: FlowConfig, engine="auto",
-                bases=None):
+                bases=None, window_dtype="float32"):
     """:func:`smooth_with_flow` along the cold flow from ``frame`` to
     ``nxt``: a step of the RTS smoother, of lsmo and of the lz3 smoother."""
     flow = flow_cfg.flow(luma(frame), luma(nxt), engine, bases)
     return smooth_with_flow(frame, nxt, flow, flow_cfg.occ_threshold, sigma,
-                            ps, engine, bases)
+                            ps, engine, bases, window_dtype)
 
 
 def filter_frame_pair(noisy, flt1_prev, flt2_prev, sigma, p1, p2,
                       flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                      bases=None):
+                      bases=None, window_dtype="float32"):
     """Two-pass filtering of one frame given the previous outputs (RGB
     in/out); with no previous frame, the spatial-only first-frame path."""
     if flt2_prev is None:
         n_opp = rgb2opp(noisy)
-        f11 = nlkalman_filter_frame(n_opp, None, None, None, sigma, p1,
-                                    engine=engine, bases=bases)
-        f21 = nlkalman_filter_frame(n_opp, None, None, f11, sigma, p2,
-                                    engine=engine, bases=bases)
+        kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
+        f11 = nlkalman_filter_frame(n_opp, None, None, None, sigma, p1, **kw)
+        f21 = nlkalman_filter_frame(n_opp, None, None, f11, sigma, p2, **kw)
         return opp2rgb(f11), opp2rgb(f21)
     flow = flow_cfg.flow(luma(noisy), luma(flt2_prev), engine, bases)
     return _filter_with_flow(noisy, flt1_prev, flt2_prev, flow,
                              flow_cfg.occ_threshold, sigma, p1, p2, engine,
-                             bases)
+                             bases, window_dtype)
 
 
 def filter_step_warm(frame, carry, sigma, p1, p2, flow_cfg: FlowConfig,
-                     engine="auto", bases=None):
+                     engine="auto", bases=None, window_dtype="float32"):
     """One warm-started forward step (the JAX scan body, sequence.py:174-181).
 
     carry = (flt1_prev, flt2_prev, u_fs). Returns (new carry, (flt1, flt2)).
@@ -166,19 +166,19 @@ def filter_step_warm(frame, carry, sigma, p1, p2, flow_cfg: FlowConfig,
                                    bases)
     f11, f21 = _filter_with_flow(frame, flt1_prev, flt2_prev, flow,
                                  flow_cfg.occ_threshold, sigma, p1, p2,
-                                 engine, bases)
+                                 engine, bases, window_dtype)
     return (f11, f21, u_c), (f11, f21)
 
 
 def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
                     p2: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                    bases=None):
+                    bases=None, window_dtype="float32"):
     """Forward-filter a (T, H, W, C) sequence -> (flt1, flt2) stacks."""
     p1 = p1 or default_params(sigma, FilterMode.FLT1)
     p2 = p2 or default_params(sigma, FilterMode.FLT2)
     f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2, flow_cfg,
-                                 engine, bases)
+                                 engine, bases, window_dtype)
     flt1, flt2 = [f11], [f21]
     if flow_cfg.warm_start and noisy.shape[0] > 1:
         # frame 1 is peeled: its flow runs the cold pyramid and seeds the
@@ -187,19 +187,20 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
                                                engine, bases)
         f11, f21 = _filter_with_flow(noisy[1], f11, f21, flow1,
                                      flow_cfg.occ_threshold, sigma, p1, p2,
-                                     engine, bases)
+                                     engine, bases, window_dtype)
         flt1.append(f11)
         flt2.append(f21)
         carry = (f11, f21, u_fs)
         for t in range(2, noisy.shape[0]):
             carry, (f11, f21) = filter_step_warm(noisy[t], carry, sigma, p1,
-                                                 p2, flow_cfg, engine, bases)
+                                                 p2, flow_cfg, engine, bases,
+                                                 window_dtype)
             flt1.append(f11)
             flt2.append(f21)
     else:
         for t in range(1, noisy.shape[0]):
             f11, f21 = filter_frame_pair(noisy[t], f11, f21, sigma, p1, p2,
-                                         flow_cfg, engine, bases)
+                                         flow_cfg, engine, bases, window_dtype)
             flt1.append(f11)
             flt2.append(f21)
     return torch.stack(flt1), torch.stack(flt2)
@@ -207,7 +208,7 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
 
 def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                    bases=None):
+                    bases=None, window_dtype="float32"):
     """Backward RTS smoothing of the filtered stack (T, H, W, C) -> smo1."""
     ps = ps or default_params(sigma, FilterMode.SMO1)
     occ_th = flow_cfg.occ_threshold
@@ -221,23 +222,23 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
         flow1, u_c = flow_cfg.flow_cold_carry(luma(flt2[-2]), luma(smo[-1]),
                                               engine, bases)
         smo[-2] = smooth_with_flow(flt2[-2], smo[-1], flow1, occ_th, sigma, ps,
-                                   engine, bases)
+                                   engine, bases, window_dtype)
         for t in range(n - 3, -1, -1):
             flow, u_c = flow_cfg.flow_warm(luma(flt2[t]), luma(smo[t + 1]),
                                            u_c, engine, bases)
             smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow, occ_th, sigma,
-                                      ps, engine, bases)
+                                      ps, engine, bases, window_dtype)
     else:
         for t in range(n - 2, -1, -1):
             smo[t] = smooth_pair(flt2[t], smo[t + 1], sigma, ps, flow_cfg,
-                                 engine, bases)
+                                 engine, bases, window_dtype)
     return torch.stack(smo)
 
 
 def fsmo_sequence(noisy, sigma, p1: NLKParams | None = None,
                   p2: NLKParams | None = None, ps: NLKParams | None = None,
                   flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                  bases=None):
+                  bases=None, window_dtype="float32"):
     """Causal forward smoothing interleaved with filtering
     (scripts/nlkalman-fsmo-seq.sh:60-94): frame t is smoothed against
     smo_{t-1} with the filter step's flow and warp; smo_0 = flt2_0.
@@ -247,25 +248,26 @@ def fsmo_sequence(noisy, sigma, p1: NLKParams | None = None,
     p2 = p2 or default_params(sigma, FilterMode.FLT2)
     ps = ps or default_params(sigma, FilterMode.SMO1)
     f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2, flow_cfg,
-                                 engine, bases)
+                                 engine, bases, window_dtype)
     outs = [(f11, f21, f21)]
     for t in range(1, noisy.shape[0]):
         f11, f21, smo = outs[-1]
         flow = flow_cfg.flow(luma(noisy[t]), luma(f21), engine, bases)
         outs.append(fsmo_step(noisy[t], f11, f21, smo, flow,
                               flow_cfg.occ_threshold, sigma, p1, p2, ps,
-                              engine, bases))
+                              engine, bases, window_dtype))
     return tuple(torch.stack(x) for x in zip(*outs))
 
 
 def lsmo_sequence(flt2, sigma, ps: NLKParams | None = None,
                   flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                  bases=None):
+                  bases=None, window_dtype="float32"):
     """Lag-1 smoother (scripts/nlkalman-lsmo-seq.sh:87-118): frame t-1 is
     smoothed against flt2_t along the cold forward flow flt2_{t-1} ->
     flt2_t; the last frame passes through."""
     ps = ps or default_params(sigma, FilterMode.SMO1)
-    lsm = [smooth_pair(flt2[t], flt2[t + 1], sigma, ps, flow_cfg, engine, bases)
+    lsm = [smooth_pair(flt2[t], flt2[t + 1], sigma, ps, flow_cfg, engine, bases,
+                       window_dtype)
            for t in range(flt2.shape[0] - 1)]
     return torch.stack(lsm + [flt2[-1]])
 
@@ -274,23 +276,26 @@ def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
                      p2: NLKParams | None = None, ps: NLKParams | None = None,
                      flow_cfg: FlowConfig = FlowConfig(), smoothing: bool = True,
                      smooth_flow_cfg: FlowConfig | None = None, engine="auto",
-                     bases=None):
+                     bases=None, window_dtype="float32"):
     """Two-pass forward filtering + backward smoothing: (flt1, flt2, smo1),
     smo1 None when ``smoothing`` is False."""
-    flt1, flt2 = filter_sequence(noisy, sigma, p1, p2, flow_cfg, engine, bases)
+    flt1, flt2 = filter_sequence(noisy, sigma, p1, p2, flow_cfg, engine, bases,
+                                 window_dtype)
     if not smoothing:
         return flt1, flt2, None
     smo1 = smooth_sequence(flt2, sigma, ps, smooth_flow_cfg or flow_cfg,
-                           engine, bases)
+                           engine, bases, window_dtype)
     return flt1, flt2, smo1
 
 
-def denoise_batch(noisy_batch, sigma, engine="auto", bases=None):
+def denoise_batch(noisy_batch, sigma, engine="auto", bases=None,
+                  window_dtype="float32"):
     """Denoise a batch of clips (B, T, H, W, C), one clip after the other
     on the batch's device, each with the default flow and parameters (JAX
     sequence.py:454-480 without its mesh: several cards are another
     matter). Returns the (flt1, flt2, smo1) stacks, each (B, T, H, W, C)."""
-    outs = [denoise_sequence(clip, sigma, engine=engine, bases=bases)
+    outs = [denoise_sequence(clip, sigma, engine=engine, bases=bases,
+                             window_dtype=window_dtype)
             for clip in noisy_batch]
     return tuple(torch.stack(x) for x in zip(*outs))
 
@@ -315,25 +320,26 @@ class PipelineModule(nn.Module):
     input before any launch."""
 
     def _setup(self, who: str, height: int, width: int, engine: str, device,
-               passes, consts) -> None:
+               passes, consts, window_dtype: str = "float32") -> None:
         """Build ``consts`` (key -> numpy build) as buffers on ``device``, the
         card unless the caller asks for the CPU (a card that is not there
-        raises); where the module runs the kernels, ``passes`` ((NLKParams,
-        mode) pairs) K1 does not take raise here."""
+        raises). ``passes`` ((NLKParams, mode, height, width) of each pass)
+        are held against K1's rule at the first frame."""
         check_engine(engine)
-        self.engine = engine
+        check_window_dtype(window_dtype)
+        self.engine, self.window_dtype = engine, window_dtype
         self.height, self.width = height, width
         self.passes = list(passes)
+        self._routed = set()
         device = entry_device(device, who)
-        if runs_kernels(device, engine):
-            check_params(self.passes)
         for name, t in make_bases(consts, device).items():
             self.register_buffer(name, t)
 
     def bases(self, noisy: torch.Tensor) -> dict:
         """The module's constants, once ``noisy`` (T, H, W, C) is checked
-        against its frame size, device and, where it runs the kernels,
-        K1's channel limit."""
+        against its frame size and device. Where the module runs the
+        kernels, each pass K1 does not take at this channel count is warned
+        of here, before any launch (``core.nlkalman.note_plain_routes``)."""
         h, w, c = noisy.shape[1:]
         if (h, w) != (self.height, self.width):
             raise ValueError(f"frames are {h}x{w}, the module was built for "
@@ -342,8 +348,10 @@ class PipelineModule(nn.Module):
         dev = next(iter(bases.values())).device
         if noisy.device != dev:
             raise ValueError(f"input on {noisy.device}, module on {dev}")
-        if runs_kernels(dev, self.engine):
-            check_params(self.passes, c)
+        if runs_kernels(dev, self.engine) and c not in self._routed:
+            self._routed.add(c)
+            for p, mode, ph, pw in self.passes:
+                note_plain_routes([(p, mode)], ph, pw, c, self.window_dtype)
         return bases
 
 
@@ -362,11 +370,12 @@ class NLKalmanDenoiser(PipelineModule):
     registered buffers, the numpy-built constants of its frame size: the
     DCT bases, the Gaussian window, and the presmoothing blur and pyramid
     zoom matrices. The buffers are built on ``device``, the card unless
-    the caller asks for the CPU; a card that is not there raises. Where
-    the module runs the kernels, parameters K1 does not take raise here,
-    and a channel count it does not take at the first frame, before any
-    launch. Inputs must lie on the module's device. No randomness, no
-    autograd.
+    the caller asks for the CPU; a card that is not there raises.
+    ``window_dtype`` ("float32" or "bfloat16") is the type every NLK pass
+    holds its DCT bands in. Where the module runs the kernels, a pass K1
+    does not take (``core.nlkalman.k1_supported``) runs the plain pass and
+    is warned of at the first frame, before any launch. Inputs must lie on
+    the module's device. No randomness, no autograd.
     """
 
     def __init__(self, sigma: float, height: int, width: int,
@@ -374,7 +383,7 @@ class NLKalmanDenoiser(PipelineModule):
                  p1: NLKParams | None = None, p2: NLKParams | None = None,
                  ps: NLKParams | None = None, engine: str = "auto",
                  device="cuda", smooth_flow_cfg: FlowConfig | None = None,
-                 smoother: str = "rts"):
+                 smoother: str = "rts", window_dtype: str = "float32"):
         super().__init__()
         if smoother not in SMOOTHERS:
             raise ValueError(f"smoother must be one of {SMOOTHERS}, got {smoother!r}")
@@ -386,15 +395,17 @@ class NLKalmanDenoiser(PipelineModule):
         self.p2 = p2 or default_params(sigma, FilterMode.FLT2)
         self.ps = ps or default_params(sigma, FilterMode.SMO1)
         self._setup("NLKalmanDenoiser", height, width, engine, device,
-                    [(self.p1, "filter"), (self.p2, "filter"), (self.ps, "smooth")],
+                    [(self.p1, "filter", height, width),
+                     (self.p2, "filter", height, width),
+                     (self.ps, "smooth", height, width)],
                     pipeline_bases(height, width, (flow_cfg, smooth_flow_cfg or flow_cfg),
-                                   (self.p1, self.p2, self.ps)))
+                                   (self.p1, self.p2, self.ps)), window_dtype)
 
     @torch.no_grad()
     def forward(self, noisy: torch.Tensor):
         bases = self.bases(noisy)
         noisy = noisy.to(torch.float32).contiguous()
-        kw = dict(engine=self.engine, bases=bases)
+        kw = dict(engine=self.engine, bases=bases, window_dtype=self.window_dtype)
         if self.smoother == "fsmo":
             return fsmo_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
                                  self.flow_cfg, **kw)

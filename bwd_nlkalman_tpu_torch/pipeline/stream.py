@@ -13,7 +13,8 @@ filtered); the anti-causal RTS smoother cannot and stays in
 
 A checkpoint holds the JAX package's keys (``index``, ``flt1``, ``flt2``,
 ``smo``, ``u_fs``, ``sigma``), as host float32 arrays, so either package
-resumes from the other's.
+resumes from the other's, and the ``window_dtype`` the stream ran with; a
+stream resumed from a checkpoint of another band type raises.
 """
 
 from __future__ import annotations
@@ -24,8 +25,8 @@ import threading
 import numpy as np
 import torch
 
-from .._dispatch import check_engine, entry_device, runs_kernels
-from ..core.engine_cuda import check_params
+from .._dispatch import check_engine, check_window_dtype, entry_device, runs_kernels
+from ..core.nlkalman import note_plain_routes
 from ..flow.tvl1 import luma
 from ..ops.bases import make_bases
 from ..ops.color import opp2rgb
@@ -52,22 +53,24 @@ class StreamingDenoiser:
     every later step warm-starts from it; lsmo's flow is always cold.
 
     Runs on ``device``, the card unless the caller asks for the CPU; a
-    card that is not there raises, and where the kernels run, parameters
-    K1 does not take raise here. The constants of the frame size (DCT
-    bases, window, blur and zoom matrices) are built at the first frame,
-    which also fixes the frame size and, where the kernels run, has its
-    channel count checked against K1's limit before any launch.
+    card that is not there raises. ``window_dtype`` is the NLK passes'
+    band type. The constants of the frame size (DCT bases, window, blur
+    and zoom matrices) are built at the first frame, which also fixes the
+    frame size; where the kernels run, a pass K1 does not take runs the
+    plain pass and is warned of then, before any launch.
     """
 
     def __init__(self, sigma: float, p1: NLKParams | None = None,
                  p2: NLKParams | None = None, ps: NLKParams | None = None,
                  smoother: str = "none", flow_cfg: FlowConfig = FlowConfig(),
-                 engine: str = "auto", device="cuda"):
+                 engine: str = "auto", device="cuda", window_dtype: str = "float32"):
         if smoother not in STREAM_SMOOTHERS:
             raise ValueError(
                 f"streaming smoother must be none/fsmo/lsmo, got {smoother}"
                 " (RTS is anti-causal; use pipeline.sequence.smooth_sequence)")
         check_engine(engine)
+        check_window_dtype(window_dtype)
+        self.window_dtype = window_dtype
         self.sigma = float(sigma)
         self.p1 = p1 or default_params(sigma, FilterMode.FLT1)
         self.p2 = p2 or default_params(sigma, FilterMode.FLT2)
@@ -77,8 +80,6 @@ class StreamingDenoiser:
         self.engine = engine
         self.device = entry_device(device, "StreamingDenoiser")
         self.passes = [(self.p1, "filter"), (self.p2, "filter"), (self.ps, "smooth")]
-        if runs_kernels(self.device, engine):
-            check_params(self.passes)
         self._bases = None
         self._shape = None
         self.flt1 = None
@@ -96,7 +97,7 @@ class StreamingDenoiser:
         h, w, c = frame.shape
         if self._shape is None:
             if runs_kernels(self.device, self.engine):
-                check_params(self.passes, c)
+                note_plain_routes(self.passes, h, w, c, self.window_dtype)
             self._bases = make_bases(pipeline_bases(
                 h, w, (self.flow_cfg,), (self.p1, self.p2, self.ps)), self.device)
             self._shape = (h, w, c)
@@ -112,11 +113,12 @@ class StreamingDenoiser:
         frame = self._tensor(noisy_frame)
         bases = self._bases_for(frame)
         kw = dict(engine=self.engine, bases=bases)
+        nlk = dict(kw, window_dtype=self.window_dtype)
         cfg = self.flow_cfg
         self.lsm = None
         if self.flt2 is None:
             f1, f2 = filter_frame_pair(frame, None, None, self.sigma, self.p1,
-                                       self.p2, cfg, **kw)
+                                       self.p2, cfg, **nlk)
             smo = f2                     # smo_first = flt2_first
         else:
             i0, i1 = luma(frame), luma(self.flt2)
@@ -130,15 +132,15 @@ class StreamingDenoiser:
                 smo_prev = self.smo if self.smo is not None else self.flt2
                 f1, f2, smo = fsmo_step(frame, self.flt1, self.flt2, smo_prev,
                                         flow, cfg.occ_threshold, self.sigma,
-                                        self.p1, self.p2, self.ps, **kw)
+                                        self.p1, self.p2, self.ps, **nlk)
             else:
                 f11, f21, _, _ = _warp_passes(frame, (self.flt1, self.flt2), flow,
                                               cfg.occ_threshold, self.sigma,
-                                              self.p1, self.p2, **kw)
+                                              self.p1, self.p2, **nlk)
                 f1, f2 = opp2rgb(f11), opp2rgb(f21)
                 smo = None
             if self.smoother == "lsmo":
-                self.lsm = smooth_pair(self.flt2, f2, self.sigma, self.ps, cfg, **kw)
+                self.lsm = smooth_pair(self.flt2, f2, self.sigma, self.ps, cfg, **nlk)
         self.flt1, self.flt2 = f1, f2
         self.smo = smo if self.smoother == "fsmo" else None
         self.index += 1
@@ -159,7 +161,8 @@ class StreamingDenoiser:
         a temporary file renamed over ``path``."""
         payload = dict(index=self.index, flt1=_host(self.flt1),
                        flt2=_host(self.flt2), smo=_host(self.smo),
-                       u_fs=_host(self.u_fs), sigma=self.sigma)
+                       u_fs=_host(self.u_fs), sigma=self.sigma,
+                       window_dtype=self.window_dtype)
 
         def write():
             tmp = path + ".tmp.npz"
@@ -174,8 +177,12 @@ class StreamingDenoiser:
         return None
 
     def load_state(self, path: str) -> None:
-        """Restore the recursion state from a checkpoint of either package."""
+        """Restore the recursion state from a checkpoint of either package;
+        one written with another band type raises."""
         with np.load(path) as z:
+            if "window_dtype" in z and str(z["window_dtype"]) != self.window_dtype:
+                raise ValueError(f"{path} was written by a {z['window_dtype']} stream, "
+                                 f"this one runs {self.window_dtype}")
             self.index = int(z["index"])
             if z["flt1"].size:
                 self.flt1 = self._tensor(z["flt1"])

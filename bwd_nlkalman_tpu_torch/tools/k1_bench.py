@@ -15,14 +15,16 @@ so both are timed on the same card. Every turn prints one JSON line with
 the card's name and power limit; the last line is the mean per tree.
 
 The timing and profiler helpers (:func:`cuda_ms`, :func:`stage_ms`,
-:func:`device_events`, :func:`kernel_ms`, :func:`busy_ms`) and the
-inputs (:func:`nlk_inputs`, :func:`pass_args`) serve ``chip_smoke.py``
-too. Needs a CUDA device.
+:func:`device_events`, :func:`kernel_ms`, :func:`busy_ms`), the inputs
+(:func:`nlk_inputs`, :func:`pass_args`) and the table of K1's patch
+sizes and channel counts (:func:`widened_cases`) serve ``chip_smoke.py``
+and the ``cuda`` tests too. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -51,7 +53,7 @@ def device_events(prof):
 def short_name(name: str) -> str:
     """A kernel's name without return type, namespaces of its own file
     and arguments: ``site_kernel<2>``."""
-    name = name.replace("(anonymous namespace)::", "")
+    name = name.replace("(anonymous namespace)::", "").replace("bnlk_nlk::", "")
     name = name[5:] if name.startswith("void ") else name
     return name.split("(")[0].strip()[:80]
 
@@ -99,6 +101,73 @@ def nlk_inputs(rng, h, w, ch, sigma=SIGMA):
     valid[:, :2] = valid[:2] = False
     basic = clean + 4 * rng.standard_normal(clean.shape).astype(np.float32)
     return cur, np.where(valid[..., None], prev, 0.0).astype(np.float32), valid, basic
+
+
+# the four kinds of pass: (mode, trained defaults, has_prev, has_basic)
+PASS_KINDS = (("filter", "flt1", False, False), ("filter", "flt1", True, False),
+              ("filter", "flt2", True, True), ("smooth", "smo1", True, False))
+
+
+def fitted_params(prms, c: int, mode: str, window_dtype: str = "float32"):
+    """``prms`` with its search radii lowered together, one at a time, until
+    K1 plans the pass (a large patch of many channels leaves room for a
+    small window only)."""
+    import dataclasses
+
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import pass_radius, plan_refusal
+
+    while plan_refusal(c, pass_radius(prms, mode), prms.patch_sz, window_dtype):
+        r = pass_radius(prms, mode) - 1
+        prms = dataclasses.replace(prms, search_sz_x=min(prms.search_sz_x, r),
+                                   search_sz_t=min(prms.search_sz_t, r))
+    return prms
+
+
+def widened_cases(patch_sizes, channels):
+    """(psz, c, mode, has_prev, has_basic, NLKParams) for every patch size
+    and channel count, the four kinds of pass in turn (so each patch size
+    meets each kind when four channel counts are given), at sigma=20's
+    defaults with the radii K1 plans in float32 (:func:`fitted_params`)."""
+    import dataclasses
+    import itertools
+
+    from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+
+    out = []
+    for i, (psz, c) in enumerate(itertools.product(patch_sizes, channels)):
+        mode, fm, has_prev, has_basic = PASS_KINDS[i % len(PASS_KINDS)]
+        p = dataclasses.replace(default_params(SIGMA, FilterMode(fm)), patch_sz=psz)
+        out.append((psz, c, mode, has_prev, has_basic, fitted_params(p, c, mode)))
+    return out
+
+
+def k1_order_distances(diff, f: int):
+    """:func:`core.engine.squared_distances` summed as K1 sums them: one
+    coefficient after the other, f = 0..F-1, each step a fused
+    multiply-add (emulated in float64: the product is exact there, and the
+    sum is rounded once more to float32), then times 1/F."""
+    import torch
+
+    acc = torch.zeros(diff.shape[:-1], dtype=torch.float32, device=diff.device)
+    for i in range(f):
+        d = diff[..., i].double()
+        acc = (acc.double() + d * d).float()
+    return acc * (1.0 / f)
+
+
+@contextlib.contextmanager
+def k1_order():
+    """Within the block the plain NLK pass sums its distances in K1's
+    order (:func:`k1_order_distances`), so that it selects the patches K1
+    selects where a tie sits on a float's last bit."""
+    from bwd_nlkalman_tpu_torch.core import engine
+
+    plain = engine.squared_distances
+    engine.squared_distances = k1_order_distances
+    try:
+        yield
+    finally:
+        engine.squared_distances = plain
 
 
 def pass_args(cur, prev, valid, basic, kb):

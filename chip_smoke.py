@@ -9,7 +9,9 @@ arguments, one GPU). Phases, each reported on its own line:
 2. build: compiles the hand-written kernels (K1 NLK pass, K2 TV-L1
    level, K3 TV-L1 tiled stage, K4 bicubic warp, P streaming-rate probe)
    from ``bwd_nlkalman_tpu_torch/csrc``, one nvcc per source, into
-   ``build/torch_kernels/`` and prints the seconds it took;
+   ``build/torch_kernels/`` and prints the seconds it took and the kernel
+   instances each source compiled (K1's patch sizes, chunk widths and band
+   types);
 3. parity: each kernel against its plain PyTorch version on the card, on
    the JAX suite's cases, at the edges of K1's site blocks (a ragged
    3-channel frame, the 961-offset window) and at the slices' shapes,
@@ -26,13 +28,23 @@ arguments, one GPU). Phases, each reported on its own line:
    it, its TV-L1 entry at 1080x1920 and, on a line of its own,
    ``grid_sample``'s bicubic as a yardstick; K4 at 9 channels (fsmo's warp
    of an RGB clip) at those sizes and at 1080p along the main path's flow,
-   timed; K1 at sigma 10 and 40, gray and RGB, at 270x480;
+   timed; K1 at sigma 10 and 40, gray and RGB, at 270x480; K1 widened: at
+   psz 2, 4, 6, 10, 12 and 16 with 1, 3, 4 and 7 channels at 48x64 (the
+   four kinds of pass in turn), at psz 4 and 12 gray and psz 8 with 4
+   channels at 270x480, each with float32 and with bf16 bands against the
+   plain pass with the same bands, and the slice's three passes in bf16 at
+   270x480; then K1 at 1080p gray, flt1 and smo1, at psz 4, 8 and 16 in
+   float32 and psz 8 in bf16: event ms, device ms, each stage's device ms
+   and the bound, beside the bound with the bands' own traffic;
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
    denoise, and K1, K2 and K4 must have launched during that run; then
    one more run under torch.profiler: device busy time, idle share, the
    five kernels that take the most device time, and each of K1-K4's
    device time and kernel count;
+4b. slice 1 with ``window_dtype="bfloat16"`` on the same frames: flt2
+   and smo1 within 0.05 dB of the float32 run, K1's launches as many,
+   none on the plain route; frames/s beside the float32 run's, profiled;
 5. slice 2: ``NLKalmanDenoiser`` with full-resolution flow (fscale=0) on
    3 frames of 1080p gray; the 1080x1920 flow level runs K3, so K1, K2,
    K3 and K4 must all have launched; then a profiled run as in phase 4;
@@ -59,16 +71,26 @@ arguments, one GPU). Phases, each reported on its own line:
 11. multiscale: ``MultiscaleDenoiser`` with the DCT and the Lanczos-3
    pyramid, each on 3 frames of 1080p gray at sigma=20 with the
    automatic 3 levels: finite, smo1 >= noisy + 6 dB, K1 launched on
-   every level; frames/s and a profiled run.
+   every level; frames/s and a profiled run;
+12. the per-frame commands in this process on 1080p RGB PNGs:
+   ``tvl1flow`` (backward and forward flows, occlusion masks written
+   beside them), ``nlkalman-flt`` (frame 0, then frame 1's two passes
+   along the backward flow) and ``nlkalman-smo``: finite, flt21 at least
+   6 dB above the noisy frame, K1 3 launches, K4 (C=3) 3, no plain-route
+   pass; ``--f1_p 7 --f2_p 0`` on a 270x480 crop takes the plain route
+   with its warning (K1 0, one plain pass); ``--f1_p 4`` at 1080p runs K1;
+   ``awgn``, ``psnr``, ``decompose`` and ``recompose`` once each.
 
-Every launch counter is set to 0 just before each of the paths 4-7 and
-9-11 and read just after. The second-to-last line is a JSON object with one entry
-per kernel; the last line is ``{"ok": true, "device": {...}}``. Any
+Every phase prints its seconds. Every launch counter is set to 0 just
+before each of the paths 4-7 and 9-12 and read just after. The second-to-last line is a JSON object with one entry
+per kernel (K1's with a ``variants`` list: each widened case held, with
+its max abs error); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import itertools
 import json
 import os
@@ -186,22 +208,28 @@ def bound(flops: float, nbytes: float, peak: float = F32_FLOPS_S):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_work(cur, prev_valid, p, mode, has_prev, has_basic):
-    """(FLOPs, bytes) of one NLK pass on these inputs: the separable 8x8
-    DCT of each band, the distances of every site's candidates (within
-    the temporal radius where the site's previous patch is valid, as the
-    pass restricts them), the separable inverse DCT and the window fold.
-    The group statistics and gains, which depend on the selection, are
-    not counted, so this is a lower bound of the work."""
+def k1_work(cur, prev_valid, p, mode, has_prev, has_basic, window_dtype="float32"):
+    """(FLOPs, bytes, band bytes) of one NLK pass on these inputs: the
+    separable psz x psz DCT of each band (4 psz^3 FLOPs a patch), the
+    distances of every site's candidates (sites every psz/2; within the
+    temporal radius where the site's previous patch is valid, as the pass
+    restricts them), the separable inverse DCT and the window fold. The
+    group statistics and gains, which depend on the selection, are not
+    counted, so this is a lower bound of the work. The bytes are the
+    function's own (the frames read once, the output written once); the
+    band bytes add each DCT band written once and read once at its type's
+    size (4 or 2 B a value), the traffic K1's design keeps in device
+    memory."""
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import patch_validity
     from bwd_nlkalman_tpu_torch.core.engine_cuda import pass_radius
 
     h, w, c = cur.shape
-    hh, ww, f = h - 7, w - 7, 64 * c
+    psz, step = p.patch_sz, p.patch_sz // 2
+    hh, ww, f = h - psz + 1, w - psz + 1, psz * psz * c
     rad = pass_radius(p, mode)
-    py = torch.arange(0, hh, 4, device=cur.device)
-    px = torch.arange(0, ww, 4, device=cur.device)
+    py = torch.arange(0, hh, step, device=cur.device)
+    px = torch.arange(0, ww, step, device=cur.device)
 
     def cands(r):
         span = lambda q, n: torch.clamp(q, max=r) + torch.clamp(n - 1 - q, max=r) + 1
@@ -209,13 +237,14 @@ def k1_work(cur, prev_valid, p, mode, has_prev, has_basic):
 
     n_cand = cands(rad)
     if mode == "filter" and has_prev:
-        n_cand = torch.where(patch_validity(prev_valid, 8)[::4, ::4],
+        n_cand = torch.where(patch_validity(prev_valid, psz)[::step, ::step],
                              cands(p.search_sz_t), n_cand)
     n_bands = 1 + int(has_basic) + int(has_prev)
-    flops = (n_bands + 1) * hh * ww * c * 2048 + int(n_cand.sum()) * f * 3 \
-        + h * w * c * 64 * 2
+    flops = (n_bands + 1) * hh * ww * c * 4 * psz ** 3 + int(n_cand.sum()) * f * 3 \
+        + h * w * c * psz * psz * 2
     nbytes = h * w * (4 * c * (2 + int(has_basic) + int(has_prev)) + int(has_prev))
-    return flops, nbytes
+    band = 2 if window_dtype == "bfloat16" else 4
+    return flops, nbytes, nbytes + 2 * n_bands * hh * ww * f * band
 
 
 # ------------------------------------------------------------------ phases
@@ -243,6 +272,12 @@ def phase_build():
     _build.library()
     log(f"[2 build] {lib.relative_to(HERE)} built in {secs:.1f} s from "
         f"{len(list(_build.CSRC.glob('*.cu')))} sources (hash {_build.source_hash()})")
+    # kernel instances each source compiled, from its ptxas report
+    counts = {p.name[:-4]: p.read_text().count("Compiling entry function")
+              for p in sorted(lib.parent.glob("*.cu.log"))}
+    log("[2 build] kernel instances by source: " + ", ".join(
+        f"{k} {v}" for k, v in counts.items()) + f"; K1 (nlk_pass*) "
+        f"{sum(v for k, v in counts.items() if k.startswith('nlk_pass'))}")
     torch.cuda.synchronize()
 
 
@@ -349,7 +384,7 @@ def phase_k1(smi):
             k_ms, p_ms = timed_pair(lambda: dense_pass_cuda(*args),
                                     lambda: dense_pass_v2(*args), 5, 1)
             d_ms = device_ms(lambda: dense_pass_cuda(*args), 3)
-            b_ms, b_by = bound(*k1_work(cur, valid, args[5], mode, has_prev, has_basic))
+            b_ms, b_by = bound(*k1_work(cur, valid, args[5], mode, has_prev, has_basic)[:2])
             log(f"[3 time] K1 {mode} 1080p gray: kernel {k_ms:.2f} ms between events, "
                 f"device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms ({b_by}) "
                 f"({smi})")
@@ -374,6 +409,110 @@ def phase_k1(smi):
         check(mean <= K1_FULL_MEAN, f"K1 {name} 1080p: mean abs err {mean}")
         del got, want, diff, args, wq
         torch.cuda.empty_cache()
+
+
+K1_VARIANTS = []    # K1's widened cases held against plain: psz, c, dtype, max abs err
+
+
+def phase_k1_widened(smi):
+    """K1 over the patch sizes and channel counts beyond psz 8 and 1-3
+    channels, and its bf16 window path, each against the plain pass with
+    the same bands, at phase 3's K1 bars; then timed at 1080p gray."""
+    import torch
+    from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda, pass_radius
+    from bwd_nlkalman_tpu_torch.ops.bases import make_bases
+    from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import (cuda_ms, fitted_params, k1_order,
+                                                       nlk_inputs, pass_args, stage_ms,
+                                                       widened_cases)
+
+    def held(tag, args, wdt, h, w):
+        """K1 against the plain pass at K1's bar (rtol 1e-3, atol 5e-2). At
+        270x480 the plain pass sums its distances in K1's order
+        (``k1_order``): there, with as many sites as a 540x960 frame has at
+        psz 8, a distance summed in another order flips a selection tie
+        (at psz 4 gray, 9 of 129,600 values past the bar, max 0.153, which
+        the plain pass in K1's order reproduces on the CPU); the plain pass
+        as it is is printed beside it."""
+        psz, c = args[5].patch_sz, args[0].shape[2]
+        got = dense_pass_cuda(*args, window_dtype=wdt)
+        want = dense_pass_v2(*args, window_dtype=wdt)
+        name = f"K1 psz={psz} c={c} {wdt} {h}x{w}"
+        head = (f"[3 parity] K1 psz={psz} ch={c} {tag} rad={pass_radius(args[5], args[6])} "
+                f"{wdt} {h}x{w}: max abs err")
+        if (h, w) == (48, 64):
+            err = max_err(got, want)
+            log(f"{head} {err:.3e} (rtol 1e-3, atol 5e-2)")
+        else:
+            diff = (got - want).abs()
+            share = float((diff > 5e-2 + 1e-3 * want.abs()).sum()) / want.numel()
+            with k1_order():
+                want = dense_pass_v2(*args, window_dtype=wdt)
+            err = max_err(got, want)
+            log(f"{head} {err:.3e} against the plain pass in K1's distance order (rtol "
+                f"1e-3, atol 5e-2); against the plain pass as it is {float(diff.max()):.3e}, "
+                f"share beyond the bar {share:.2e}")
+        K1_VARIANTS.append({"psz": psz, "c": c, "mode": tag, "window_dtype": wdt,
+                            "size": f"{h}x{w}", "max_abs_err": err})
+        assert_close(name, got, want, rtol=1e-3, atol=5e-2)
+
+    rng = np.random.default_rng(4)
+    bases = {}
+    for wdt in ("float32", "bfloat16"):
+        for psz, c, mode, has_prev, has_basic, p in widened_cases((2, 4, 6, 10, 12, 16),
+                                                                  (1, 3, 4, 7)):
+            cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                       for a in nlk_inputs(rng, 48, 64, c))
+            if not has_prev:
+                prev, valid = torch.zeros_like(cur), torch.zeros_like(valid)
+            kb = bases.setdefault(psz, make_bases(nlk_bases(psz), "cuda"))
+            tag = f"{mode} prev={has_prev} basic={has_basic}"
+            held(tag, (cur, prev, valid, basic if has_basic else cur, SIGMA, p, mode,
+                       has_prev, has_basic, kb), wdt, 48, 64)
+    # quarter size: psz 4 and 12 gray, psz 8 at 4 channels, and the slice's
+    # three passes in bf16 (their float32 cases are phase 3's)
+    mids = [(4, 1, "flt1"), (12, 1, "flt1"), (8, 4, "flt1")]
+    for wdt in ("float32", "bfloat16"):
+        for psz, c, name in mids + ([(8, 1, n) for n in ("flt1", "flt2", "smo1")]
+                                     if wdt == "bfloat16" else []):
+            fm = FilterMode(name)
+            mode = "smooth" if name == "smo1" else "filter"
+            has_basic = name == "flt2"
+            p = fitted_params(dataclasses.replace(default_params(SIGMA, fm), patch_sz=psz),
+                              c, mode)
+            cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                       for a in nlk_inputs(rng, *MID, c))
+            kb = bases.setdefault(psz, make_bases(nlk_bases(psz), "cuda"))
+            held(f"{name} prev=True basic={has_basic}",
+                 (cur, prev, valid, basic if has_basic else cur, SIGMA, p, mode, True,
+                  has_basic, kb), wdt, *MID)
+    PARITY["K1"] = max([PARITY["K1"]] + [v["max_abs_err"] for v in K1_VARIANTS])
+
+    # 1080p gray, flt1 and smo1: psz 4, 8 and 16 in float32, psz 8 in bf16
+    cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                               for a in nlk_inputs(np.random.default_rng(0), *FULL, 1))
+    for psz, wdt in ((8, "float32"), (8, "bfloat16"), (4, "float32"), (16, "float32")):
+        kb = bases.setdefault(psz, make_bases(nlk_bases(psz), "cuda"))
+        for name, args in pass_args(cur, prev, valid, basic, kb).items():
+            if name not in ("flt1", "smo1"):
+                continue
+            mode, has_prev, has_basic = args[6:9]
+            p = dataclasses.replace(args[5], patch_sz=psz)
+            args = args[:5] + (p,) + args[6:]
+            run = lambda: dense_pass_cuda(*args, window_dtype=wdt)  # noqa: E731
+            k_ms = cuda_ms(run, 5)
+            d_ms = device_ms(run, 3)
+            st = stage_ms(run, 3)
+            flops, nbytes, band_bytes = k1_work(cur, valid, p, mode, has_prev, has_basic, wdt)
+            b_ms, b_by = bound(flops, nbytes)
+            bb_ms, bb_by = bound(flops, band_bytes)
+            log(f"[3 time] K1 {name} psz={psz} {wdt} 1080p gray: kernel {k_ms:.3f} ms between "
+                f"events, device {fmt_ms(d_ms)}; stages " + (
+                    ", ".join(f"{k} {v:.3f}" for k, v in st.items()) if st
+                    else "not measured") + f"; bound {b_ms:.3f} ms ({b_by}), with the "
+                f"bands in device memory {bb_ms:.3f} ms ({bb_by}) ({smi})")
+            torch.cuda.empty_cache()
 
 
 def phase_k2(smi):
@@ -735,7 +874,46 @@ def phase_slice(smi):
     check(p_s >= p_2 - 0.1, "smo1 is worse than flt2 by more than 0.1 dB")
     check(launches["K1"] >= 3 * t - 1, f"K1 ran {launches['K1']} passes")
     profile_slice(lambda: model(noisy), "4 slice profile", smi)
-    return launches
+    return {"psnr": (p_2, p_s), "fps": t / secs, "launches": launches}
+
+
+def phase_slice_bf16(smi, f32):
+    """Slice 1 with bf16 bands (``window_dtype="bfloat16"``) on the same 4
+    frames: flt2 and smo1 within 0.05 dB of the float32 run (the JAX
+    package's bf16 gate), K1 launched on every pass, none on the plain
+    route; frames/s beside the float32 run's and a profiled run."""
+    import torch
+    from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
+
+    t, (h, w) = 4, FULL
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+    model = NLKalmanDenoiser(SIGMA, h, w, FlowConfig(warm_start=True, warm_nwarps=3),
+                             window_dtype="bfloat16")
+    model(noisy[:2])            # warm-up
+    torch.cuda.synchronize()
+    counters = reset_counters()
+    PLAIN_PASSES.reset()
+    t0 = time.perf_counter()
+    flt1, flt2, smo1 = model(noisy)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters(counters, "4b slice bf16", ("K1", "K2", "K4"))
+    for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
+        check(x.shape == noisy.shape and bool(torch.isfinite(x).all()), f"bf16 {name} bad")
+    p_2, p_s = psnr(clean, flt2), psnr(clean, smo1)
+    d2, ds = p_2 - f32["psnr"][0], p_s - f32["psnr"][1]
+    log(f"[4b slice bf16] 1080p gray T={t} bf16 bands: PSNR flt2 {p_2:.3f} smo1 {p_s:.3f} dB "
+        f"(float32 {f32['psnr'][0]:.3f} / {f32['psnr'][1]:.3f}; d {d2:+.4f} / {ds:+.4f}, "
+        f"|d| <= 0.05); plain-route passes {PLAIN_PASSES.count}")
+    log(f"[4b slice bf16] {secs:.3f} s, {t / secs:.3f} frames/s (float32 {f32['fps']:.3f}) "
+        f"({smi})")
+    check(abs(d2) <= 0.05 and abs(ds) <= 0.05, "bf16 slice PSNR off float32 by > 0.05 dB")
+    check(launches["K1"] == f32["launches"]["K1"], f"bf16 slice K1 ran {launches['K1']}")
+    check(PLAIN_PASSES.count == 0, "a bf16 slice pass took the plain route")
+    profile_slice(lambda: model(noisy), "4b slice bf16 profile", smi)
 
 
 def profile_slice(run, tag, smi):
@@ -1068,6 +1246,113 @@ def phase_multiscale(smi):
     return out
 
 
+def phase_cli_frame(smi):
+    """The per-frame commands at full width, in this process through each
+    command's ``main`` (what ``python -m`` runs), on 1080p RGB PNG frames:
+    ``tvl1flow`` writes the backward and forward flows and their occlusion
+    masks are written beside them; ``nlkalman-flt`` filters frame 0, then
+    frame 1 with both passes along the backward flow (``--flt10``,
+    ``--flt20``, ``-o``, ``-k``), then ``nlkalman-smo`` smooths frame 0 along
+    the forward flow. Then ``--f1_p 7 --f2_p 0`` on a 270x480 crop must take
+    the plain route with its warning, and ``--f1_p 4`` at 1080p must run
+    K1; ``awgn``, ``psnr``, ``decompose`` and ``recompose`` run once each."""
+    import tempfile
+    import warnings
+
+    import torch
+    from bwd_nlkalman_tpu_torch.cli import (awgn, decompose, nlkalman_flt, nlkalman_smo,
+                                            recompose, tvl1flow)
+    from bwd_nlkalman_tpu_torch.cli import psnr as psnr_cli
+    from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
+    from bwd_nlkalman_tpu_torch.flow import occlusion_mask
+    from bwd_nlkalman_tpu_torch.io import read_flo, read_image, write_png
+
+    def run(main, argv):
+        rc = main(argv)
+        check(rc == 0, f"{main.__module__} {' '.join(argv)} exited {rc}")
+
+    def reset():
+        PLAIN_PASSES.reset()
+        return reset_counters()
+
+    clean, noisy = make_clip(*FULL, 2, SIGMA, channels=3)
+    with tempfile.TemporaryDirectory() as d:
+        f = lambda n: os.path.join(d, n)  # noqa: E731
+        for i in range(2):
+            write_png(f(f"n{i}.png"), noisy[i])
+        write_png(f("c1.png"), clean[1])
+        t0 = time.perf_counter()
+        run(tvl1flow.main, [f("n1.png"), f("n0.png"), f("b.flo")])
+        run(tvl1flow.main, [f("n0.png"), f("n1.png"), f("f.flo")])
+        for flo, occ in (("b.flo", "b.png"), ("f.flo", "f.png")):
+            u = torch.from_numpy(read_flo(f(flo))).cuda()
+            write_png(f(occ), occlusion_mask(u, 0.75).cpu().numpy())
+        run(nlkalman_flt.main, ["-i", f("n0.png"), "--flt11", f("f10.tif"),
+                                "--flt21", f("f20.tif"), "-s", f"{SIGMA:g}"])
+        t_prep = time.perf_counter() - t0
+        counters = reset()
+        t0 = time.perf_counter()
+        run(nlkalman_flt.main, ["-i", f("n1.png"), "-o", f("b.flo"), "-k", f("b.png"),
+                                "--flt10", f("f10.tif"), "--flt20", f("f20.tif"),
+                                "--flt11", f("f11.tif"), "--flt21", f("f21.tif"),
+                                "-s", f"{SIGMA:g}"])
+        t_flt = time.perf_counter() - t0
+        run(nlkalman_smo.main, ["--flt1", f("f20.tif"), "--smo0", f("f21.tif"),
+                                "-o", f("f.flo"), "-k", f("f.png"), "--smo1", f("s10.tif"),
+                                "-s", f"{SIGMA:g}"])
+        t_smo = time.perf_counter() - t0 - t_flt
+        launches = read_counters(counters, "12 per-frame commands", ("K1", "K4"))
+        flt21, smo10 = read_image(f("f21.tif")), read_image(f("s10.tif"))
+        n1 = read_image(f("n1.png"))
+        for name, x in (("flt21", flt21), ("smo10", smo10)):
+            check(x.shape == FULL + (3,) and np.isfinite(x).all(), f"{name} bad")
+        c1 = torch.from_numpy(clean[1])
+        p_n, p_f = psnr(c1, torch.from_numpy(n1)), psnr(c1, torch.from_numpy(flt21))
+        log(f"[12 per-frame commands] 1080p RGB PNGs: tvl1flow x2 with occlusion masks and "
+            f"nlkalman-flt on frame 0 {t_prep:.3f} s; nlkalman-flt on frame 1 (both passes, "
+            f"flt10/flt20 warped along -o with -k) {t_flt:.3f} s, nlkalman-smo {t_smo:.3f} s, "
+            f"with io; PSNR noisy {p_n:.3f} flt21 {p_f:.3f} dB; K1 {launches['K1']} (3), K4 "
+            f"{launches['K4']} (3, C=3), plain-route passes {PLAIN_PASSES.count} ({smi})")
+        check(p_f >= p_n + 6.0, "nlkalman-flt flt21 does not denoise by 6 dB")
+        check(launches["K1"] == 3 and launches["K4"] == 3, "per-frame K1 / K4 launches")
+        check(PLAIN_PASSES.count == 0, "a default per-frame pass took the plain route")
+
+        # an odd patch size: the plain route, by rule and warned
+        write_png(f("crop.png"), noisy[1][:MID[0], :MID[1]])
+        counters = reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            run(nlkalman_flt.main, ["-i", f("crop.png"), "--f1_p", "7", "--f2_p", "0",
+                                    "--flt11", f("c11.tif"), "-s", f"{SIGMA:g}"])
+        said = [str(w.message) for w in caught if "plain PyTorch" in str(w.message)]
+        k1 = counters["K1"].count
+        log(f"[12 per-frame commands] --f1_p 7 --f2_p 0 on {MID[0]}x{MID[1]}: K1 {k1} (0), "
+            f"plain-route passes {PLAIN_PASSES.count} (1); warning: {said}")
+        check(k1 == 0 and PLAIN_PASSES.count == 1 and said, "psz 7 did not take the plain route")
+        check(np.isfinite(read_image(f("c11.tif"))).all(), "psz 7 output bad")
+        # an even patch size K1 takes now
+        counters = reset()
+        run(nlkalman_flt.main, ["-i", f("n1.png"), "-o", f("b.flo"), "-k", f("b.png"),
+                                "--flt10", f("f10.tif"), "--flt20", f("f20.tif"),
+                                "--f1_p", "4", "--flt21", f("p4.tif"), "-s", f"{SIGMA:g}"])
+        k1 = counters["K1"].count
+        p_4 = psnr(c1, torch.from_numpy(read_image(f("p4.tif"))))
+        log(f"[12 per-frame commands] --f1_p 4 at 1080p RGB: K1 {k1} (2), plain-route passes "
+            f"{PLAIN_PASSES.count} (0), PSNR flt21 {p_4:.3f} dB")
+        check(k1 == 2 and PLAIN_PASSES.count == 0, "--f1_p 4 did not run K1")
+        # the io and measure commands, once each
+        t0 = time.perf_counter()
+        run(awgn.main, [f"{SIGMA:g}", f("c1.png"), f("a.tif"), "--seed", "1"])
+        run(psnr_cli.main, [f("c1.png"), f("a.tif")])
+        run(decompose.main, [f("n1.png"), f("lv"), "3", ".tif"])
+        run(recompose.main, [f("lv"), "3", ".tif", f("r.tif")])
+        rec = read_image(f("r.tif"))
+        log(f"[12 per-frame commands] awgn, psnr, decompose (3 levels), recompose on one "
+            f"1080p RGB frame: {time.perf_counter() - t0:.3f} s with io; recomposed PSNR "
+            f"against the noisy frame {psnr(torch.from_numpy(n1), torch.from_numpy(rec)):.3f} dB")
+        check(rec.shape == FULL + (3,) and np.isfinite(rec).all(), "recompose output bad")
+
+
 # the kernels of each, by the start of their names as torch.profiler shows them
 KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
                 "K2": ("level_kernel",), "K3": ("stage_kernel",), "K4": ("warp_tile_kernel",)}
@@ -1090,30 +1375,33 @@ def main() -> int:
     import torch
 
     sys.path.insert(0, HERE)
+    t0 = time.perf_counter()
     phase_build()
+    log(f"[2 build] phase took {time.perf_counter() - t0:.1f} s")
 
     def settle():
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
 
-    for phase in (phase_k1, phase_k2, phase_k3, phase_k4, phase_p):
-        phase(smi)
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
         settle()
-    phase_slice(smi)
-    settle()
-    launches = phase_slice_fullres(smi)
-    settle()
-    phase_cli_tvl1flow(smi)
-    settle()
-    launches["P"] = phase_probe()["P"]
-    settle()
-    phase_slice_vs_plain()
-    settle()
-    phase_stream(smi)
-    settle()
-    phase_cli_lsmo(smi)
-    settle()
-    phase_multiscale(smi)
+        log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
+        return out
+
+    for phase in (phase_k1, phase_k1_widened, phase_k2, phase_k3, phase_k4, phase_p):
+        timed(f"3 {phase.__name__}", phase, smi)
+    slice1 = timed("4 slice", phase_slice, smi)
+    timed("4b slice bf16", phase_slice_bf16, smi, slice1)
+    launches = timed("5 slice fscale=0", phase_slice_fullres, smi)
+    timed("6 tvl1flow", phase_cli_tvl1flow, smi)
+    launches["P"] = timed("7 probe", phase_probe)["P"]
+    timed("8 slice vs plain", phase_slice_vs_plain)
+    timed("9 stream", phase_stream, smi)
+    timed("10 nlkalman-seq lsmo", phase_cli_lsmo, smi)
+    timed("11 multiscale", phase_multiscale, smi)
+    timed("12 per-frame commands", phase_cli_frame, smi)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)
@@ -1122,7 +1410,8 @@ def main() -> int:
          "replaces": KERNELS[k][2], "launches": launches[k],
          "max_abs_err": PARITY[k], "ms": TIMES[k][0], "device_ms": TIMES[k][2],
          "plain_ms": TIMES[k][1],
-         "bound_ms": BOUNDS[k][0], "bound_by": BOUNDS[k][1], "library_ms": None}
+         "bound_ms": BOUNDS[k][0], "bound_by": BOUNDS[k][1], "library_ms": None,
+         **({"variants": K1_VARIANTS} if k == "K1" else {})}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

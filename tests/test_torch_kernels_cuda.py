@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
+from bwd_nlkalman_tpu_torch.core import engine_cuda
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
-from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+from bwd_nlkalman_tpu_torch.core.engine_cuda import PATCH_SIZES, dense_pass_cuda
 from bwd_nlkalman_tpu_torch.flow import tvl1_block_cuda as k3
 from bwd_nlkalman_tpu_torch.flow import tvl1_cuda as k2
 from bwd_nlkalman_tpu_torch.flow import tvl1_fused, tvl1_tiled
@@ -26,6 +27,7 @@ from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp_plain
 from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda
 from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
 from bwd_nlkalman_tpu_torch.tools import vpu_probe
+from bwd_nlkalman_tpu_torch.tools.k1_bench import nlk_inputs, widened_cases
 from bwd_nlkalman_tpu_torch.tools.warp_bench import noisy_flow
 
 pytestmark = pytest.mark.cuda
@@ -151,6 +153,27 @@ def test_nlk_kernel_matches_plain(dev, mode, fm, has_prev, has_basic, h, w, c, s
             has_prev, has_basic)
     torch.testing.assert_close(dense_pass_cuda(*args), dense_pass_v2(*args),
                                rtol=1e-3, atol=5e-2)
+
+
+@pytest.mark.parametrize("window_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("psz,c,mode,has_prev,has_basic,prms",
+                         widened_cases(PATCH_SIZES, (1, 3, 4, 7)))
+def test_nlk_kernel_sizes_match_plain(dev, psz, c, mode, has_prev, has_basic, prms,
+                                      window_dtype):
+    """K1 at every patch size it is built for and 1, 3, 4 and 7 channels,
+    each kind of pass in turn, on float32 and bfloat16 bands, against the
+    plain pass with the same bands, at K1's bar (rtol 1e-3, atol 5e-2: a
+    distance summed in another order can flip a selection tie)."""
+    rng = np.random.default_rng(psz * 10 + c)
+    cur, prev, valid, basic = (_t(a, dev) for a in nlk_inputs(rng, 48, 64, c))
+    if not has_prev:
+        prev, valid = torch.zeros_like(cur), torch.zeros_like(valid)
+    args = (cur, prev, valid, basic if has_basic else cur, 20.0, prms, mode,
+            has_prev, has_basic, None, window_dtype)
+    engine_cuda.LAUNCHES.reset()
+    got = dense_pass_cuda(*args)
+    assert engine_cuda.LAUNCHES.count == 1
+    torch.testing.assert_close(got, dense_pass_v2(*args), rtol=1e-3, atol=5e-2)
 
 
 def _level_pair(dev, h=25, w=41):

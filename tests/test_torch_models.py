@@ -1,5 +1,5 @@
 """The port's model registry, batch driver, default device and K1's
-early argument check, on the CPU.
+routing rule, on the CPU.
 
 - ``get_model`` for each of the six names equals the direct pipeline
   call (the same arithmetic: the registry builds the variant's module);
@@ -7,8 +7,11 @@ early argument check, on the CPU.
 - ``denoise_batch`` equals ``denoise_sequence`` clip by clip.
 - Every entry point of this slice, built without a device, asks for the
   card, and raises where there is none.
-- ``check_params`` names the K1 limit that a patch size, search radius or
-  channel count passes, and points at the plain engine.
+- The parameters the entry points refused before K1 took every even
+  patch size and 1-7 channels: those K1 takes now route to it, the rest
+  route to the plain pass with a warning that names the reason
+  (``core.nlkalman.k1_refusal``, warned at an entry point's first frame
+  and counted where a CUDA pass takes the plain route).
 """
 
 import dataclasses
@@ -18,7 +21,8 @@ import pytest
 import torch
 
 from bwd_nlkalman_tpu_torch import models
-from bwd_nlkalman_tpu_torch.core.engine_cuda import MAX_RAD, check_params
+from bwd_nlkalman_tpu_torch.core import nlkalman as nlk
+from bwd_nlkalman_tpu_torch.core.engine_cuda import MAX_RAD
 from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
 from bwd_nlkalman_tpu_torch.pipeline import multiscale as ms
 from bwd_nlkalman_tpu_torch.pipeline import sequence as seq
@@ -83,17 +87,28 @@ def test_new_entry_points_run_on_the_card_by_default(name):
             ENTRY_POINTS[name]()
 
 
-@pytest.mark.parametrize("change,channels,limit", [
-    (dict(patch_sz=6), None, "patch_sz 8, got 6"),
-    (dict(search_sz_x=MAX_RAD + 1), None, f"search radius <= {MAX_RAD}, got {MAX_RAD + 1}"),
-    ({}, 4, "1..3 channels, got 4"),
+@pytest.mark.parametrize("change,channels,reason", [
+    # refused until K1 took every even patch size and 1-7 channels
+    (dict(patch_sz=6), 1, None),
+    ({}, 4, None),
+    # still not K1's: the plain pass runs them, warned by name
+    (dict(search_sz_x=MAX_RAD + 1), 1, f"search radius {MAX_RAD + 1}, K1 takes 0..{MAX_RAD}"),
+    (dict(patch_sz=7), 1, "patch_sz 7 is odd"),
+    ({}, 8, "8 channels, K1 takes 1..7"),
 ])
-def test_k1_limits_raise_early(change, channels, limit):
-    """What the entry points check before any launch where they run K1:
-    a filter pass's radius is the larger of its two, and a channel count
-    is checked once the first frame gives it."""
+def test_k1_limits_raise_early(monkeypatch, change, channels, reason):
+    """What an entry point that runs the kernels decides at its first frame,
+    before any launch, for each pass (a filter pass's radius is the larger
+    of its two): nothing raises; a pass K1 does not take gets the warning
+    that names the reason, once, and goes to the plain pass."""
+    monkeypatch.setattr(nlk, "_WARNED", set())
     p = dataclasses.replace(default_params(SIGMA, FilterMode.FLT1), **change)
-    with pytest.raises(ValueError, match=limit) as e:
-        check_params([(p, "filter")], channels)
-    assert "engine='plain'" in str(e.value)
-    check_params([(default_params(SIGMA, FilterMode.SMO1), "smooth")], 3)
+    assert nlk.k1_refusal(48, 64, channels, p, "filter") == reason
+    assert nlk.k1_supported(48, 64, channels, p, "filter") is (reason is None)
+    if reason is None:
+        assert nlk.note_plain_routes([(p, "filter")], 48, 64, channels) == []
+        return
+    want = nlk.plain_route_warning(reason)
+    assert reason in want and "k1_supported" in want
+    with pytest.warns(UserWarning, match=want.replace("(", r"\(").replace(")", r"\)")):
+        assert nlk.note_plain_routes([(p, "filter")], 48, 64, channels) == [reason]

@@ -19,7 +19,8 @@ from bwd_nlkalman_tpu.params import FilterMode, NLKParams, default_params
 from bwd_nlkalman_tpu_torch.convert import params_from_jax
 from bwd_nlkalman_tpu_torch.core import nlkalman_filter_frame, nlkalman_smooth_frame
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
-from bwd_nlkalman_tpu_torch.core.engine_cuda import MAX_RAD, dense_pass_cuda, site_plan
+from bwd_nlkalman_tpu_torch.core.engine_cuda import (MAX_RAD, dense_pass_cuda, plan_refusal,
+                                                     site_plan)
 from bwd_nlkalman_tpu_torch.tools.k1_bench import busy_ms, kernel_ms
 
 torch.set_num_threads(1)
@@ -134,12 +135,36 @@ def test_k1_launch_plan_fits(c):
         assert smem % 16 == 0
 
 
-@pytest.mark.parametrize("kw", [dict(c=1, rad=16), dict(c=3, rad=16), dict(c=4, rad=10),
-                                dict(c=0, rad=10), dict(c=1, rad=10, psz=6),
-                                dict(c=1, rad=10, psz=16)])
-def test_k1_launch_plan_refuses(kw):
-    with pytest.raises(ValueError):
-        site_plan(**kw)
+@pytest.mark.parametrize("kw,plans", [
+    # refused until K1 took every even patch size and 1-7 channels
+    (dict(c=4, rad=10), True),
+    (dict(c=1, rad=10, psz=6), True),
+    (dict(c=1, rad=10, psz=16), True),
+    (dict(c=7, rad=5, psz=2), True),
+    # a site of 3 channels at psz 16 and radius 15 fits in bf16 bands only
+    (dict(c=3, rad=15, psz=16, window_dtype="bfloat16"), True),
+    (dict(c=3, rad=15, psz=16), False),
+    (dict(c=7, rad=10, psz=16), False),
+    # outside what K1 is built for
+    (dict(c=1, rad=16), False),
+    (dict(c=3, rad=16), False),
+    (dict(c=0, rad=10), False),
+    (dict(c=8, rad=10), False),
+    (dict(c=1, rad=10, psz=7), False),
+    (dict(c=1, rad=10, psz=18), False),
+    (dict(c=1, rad=10, psz=0), False),
+])
+def test_k1_launch_plan_refuses(kw, plans):
+    """What K1's launch plan takes: a plan fits 227 KB with 1 to 8 sites;
+    anything else raises, with the reason plan_refusal gives."""
+    why = plan_refusal(**kw)
+    assert (why is None) is plans
+    if plans:
+        sites, smem = site_plan(**kw)
+        assert 1 <= sites <= 8 and smem <= 232_448 and smem % 16 == 0
+    else:
+        with pytest.raises(ValueError, match="K1 does not take"):
+            site_plan(**kw)
 
 
 def test_k1_wrapper_takes_cuda_tensors_only(rng):
@@ -159,7 +184,9 @@ def test_k1_bench_profile_helpers():
            0.0, 1000.0),
           ("void (anonymous namespace)::site_kernel<2>((anonymous namespace)::SiteArgs)",
            500.0, 2000.0),
-          ("Memset (Device)", 3000.0, 3500.0)]
-    assert kernel_ms(ev) == {"site_kernel<2>": 2.5, "Memset": 0.5}
-    assert busy_ms(ev) == 2.5
+          ("Memset (Device)", 3000.0, 3500.0),
+          ("void bnlk_nlk::(anonymous namespace)::fold_kernel<8, 3>(const float *)",
+           4000.0, 4250.0)]
+    assert kernel_ms(ev) == {"site_kernel<2>": 2.5, "Memset": 0.5, "fold_kernel<8, 3>": 0.25}
+    assert busy_ms(ev) == 2.75
     assert busy_ms([]) == 0.0
