@@ -15,10 +15,11 @@ plus ``--device`` (default ``cuda``) where it computes on a device.
 | psnr               | scripts/psnr.sh                      | no     |
 | decompose          | decompose (lib/multiscale)           | yes    |
 | recompose          | recompose (lib/multiscale)           | yes    |
+| plambda            | plambda (lib/imscript-lite)          | no     |
 
 Run as ``python -m bwd_nlkalman_tpu_torch.cli.<tool> ...``.
 """
 
 COMMANDS = ("nlkalman_flt", "nlkalman_smo", "tvl1flow", "nlkalman_seq",
             "msnlkalman_seq", "msnlkalman_lz3_seq", "iion", "awgn", "psnr",
-            "decompose", "recompose")
+            "decompose", "recompose", "plambda")

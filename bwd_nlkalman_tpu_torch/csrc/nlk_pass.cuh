@@ -609,7 +609,13 @@ __global__ void __launch_bounds__(32 * kMaxSites, CC == 1 ? 4 : 1) site_kernel(S
   } else {
     vp *= fminf((float)np0, naggf);
   }
-  const float wg = (a.smooth && !temporal) ? 1e6f : 1.0f / fmaxf(vp, 1e-6f);
+  // the clamp keeps a NaN, as torch.clamp in the plain pass and
+  // jnp.maximum in the JAX package's passes do (fmaxf would drop it):
+  // where a gain is 0/0 (a beta of 0 and no group variance) the site's
+  // weight is NaN, so is the aggregate under its members, and the fold
+  // copies the input there, as the plain pass does
+  const float wg = (a.smooth && !temporal) ? 1e6f
+                                           : 1.0f / (isnan(vp) ? vp : fmaxf(vp, 1e-6f));
   if (lane == 0) a.wgt[s] = wg;
   // member bits over the full window: temporal -> first nagg prev-valid
   // (m0sel); spatial -> first nagg selected (memsp); smoother

@@ -10,9 +10,11 @@ from .sequence import (  # noqa: F401
     denoise_sequence,
     filter_frame_pair,
     filter_sequence,
+    filter_sequence_precomputed,
     filter_step_warm,
     fsmo_sequence,
     lsmo_sequence,
     smooth_sequence,
+    smooth_sequence_precomputed,
 )
 from .stream import StreamingDenoiser, run_streaming  # noqa: F401

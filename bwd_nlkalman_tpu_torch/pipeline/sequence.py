@@ -78,27 +78,37 @@ class FlowConfig:
                               engine=engine, bases=bases, **self._kw())
 
 
-def _warp_passes(noisy, prevs, flow, occ_th, sigma, p1, p2, engine="auto",
+def _occlusion(flow, occ):
+    """The (H, W) occlusion mask of a warp along ``flow``: ``occ`` as it is
+    where it is a ready mask (a float32 tensor, nonzero = occluded, as the
+    training fixtures store it), else the divergence mask of ``flow`` at
+    the threshold ``occ``."""
+    return occ if isinstance(occ, torch.Tensor) else occlusion_mask(flow, occ)
+
+
+def _warp_passes(noisy, prevs, flow, occ, sigma, p1, p2, engine="auto",
                  bases=None, window_dtype="float32"):
     """The two filter passes of ``noisy`` given the backward flow and the
     previous outputs ``prevs`` (RGB: flt1, flt2 and, for fsmo, smo). All
-    of them ride one warp: same flow, same validity. Returns (f11, f21) in
-    OPP, the warped priors after the first two (OPP) and the validity."""
+    of them ride one warp: same flow, same validity. ``occ`` is the
+    occlusion threshold or a ready mask (:func:`_occlusion`). Returns
+    (f11, f21) in OPP, the warped priors after the first two (OPP) and the
+    validity."""
     n_opp = rgb2opp(noisy)
-    occ = occlusion_mask(flow, occ_th)
     c = noisy.shape[-1]
     wt, v1 = warp_bicubic_nan(torch.cat([rgb2opp(p) for p in prevs], dim=-1),
-                              flow, occ, engine=engine)
+                              flow, _occlusion(flow, occ), engine=engine)
     kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
     f11 = nlkalman_filter_frame(n_opp, wt[..., :c], v1, None, sigma, p1, **kw)
     f21 = nlkalman_filter_frame(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2, **kw)
     return f11, f21, wt[..., 2 * c:], v1
 
 
-def _filter_with_flow(noisy, flt1_prev, flt2_prev, flow, occ_th, sigma, p1, p2,
+def _filter_with_flow(noisy, flt1_prev, flt2_prev, flow, occ, sigma, p1, p2,
                       engine="auto", bases=None, window_dtype="float32"):
-    """Two-pass filtering given an already-computed backward flow."""
-    f11, f21, _, _ = _warp_passes(noisy, (flt1_prev, flt2_prev), flow, occ_th,
+    """Two-pass filtering given an already-computed backward flow and the
+    occlusion threshold or a ready mask."""
+    f11, f21, _, _ = _warp_passes(noisy, (flt1_prev, flt2_prev), flow, occ,
                                   sigma, p1, p2, engine, bases, window_dtype)
     return opp2rgb(f11), opp2rgb(f21)
 
@@ -118,12 +128,13 @@ def fsmo_step(noisy, flt1_prev, flt2_prev, smo_prev, flow, occ_th, sigma, p1,
     return opp2rgb(f11), opp2rgb(f21), opp2rgb(smo)
 
 
-def smooth_with_flow(frame_flt2, smo_next, flow, occ_th, sigma, ps,
+def smooth_with_flow(frame_flt2, smo_next, flow, occ, sigma, ps,
                      engine="auto", bases=None, window_dtype="float32"):
     """One smoother pass of ``frame_flt2`` against ``smo_next`` warped
-    along ``flow`` (RGB in and out)."""
-    occ = occlusion_mask(flow, occ_th)
-    w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, occ, engine=engine)
+    along ``flow`` (RGB in and out); ``occ`` is the occlusion threshold or
+    a ready mask (:func:`_occlusion`)."""
+    w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, _occlusion(flow, occ),
+                              engine=engine)
     return opp2rgb(nlkalman_smooth_frame(rgb2opp(frame_flt2), w0, v0, sigma,
                                          ps, engine=engine, bases=bases,
                                          window_dtype=window_dtype))
@@ -232,6 +243,46 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
         for t in range(n - 2, -1, -1):
             smo[t] = smooth_pair(flt2[t], smo[t + 1], sigma, ps, flow_cfg,
                                  engine, bases, window_dtype)
+    return torch.stack(smo)
+
+
+def filter_sequence_precomputed(noisy, bflow, bocc, sigma,
+                                p1: NLKParams | None = None,
+                                p2: NLKParams | None = None, engine="auto",
+                                bases=None, window_dtype="float32"):
+    """Forward filtering with a GIVEN backward flow and occlusion mask, the
+    training protocol's economy (nlkalman-train.sh:17-28): the flow is
+    computed once per (sequence, sigma) from the noisy frames and reused by
+    every parameter trial. bflow (T, H, W, 2): flow t -> t-1; bocc (T, H, W)
+    float32, nonzero = occluded; frame 0's entries are unused (frame 0 runs
+    its two passes with no prior). Returns the (flt1, flt2) stacks."""
+    p1 = p1 or default_params(sigma, FilterMode.FLT1)
+    p2 = p2 or default_params(sigma, FilterMode.FLT2)
+    f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2,
+                                 engine=engine, bases=bases,
+                                 window_dtype=window_dtype)
+    flt1, flt2 = [f11], [f21]
+    for t in range(1, noisy.shape[0]):
+        f11, f21 = _filter_with_flow(noisy[t], f11, f21, bflow[t], bocc[t], sigma,
+                                     p1, p2, engine, bases, window_dtype)
+        flt1.append(f11)
+        flt2.append(f21)
+    return torch.stack(flt1), torch.stack(flt2)
+
+
+def smooth_sequence_precomputed(flt2, fflow, focc, sigma,
+                                ps: NLKParams | None = None, engine="auto",
+                                bases=None, window_dtype="float32"):
+    """Backward RTS smoothing with a GIVEN forward flow and occlusion mask:
+    fflow[t] (H, W, 2) is the flow t -> t+1 and focc[t] its mask (nonzero =
+    occluded); the last frame's entries are unused. Returns smo1."""
+    ps = ps or default_params(sigma, FilterMode.SMO1)
+    n = flt2.shape[0]
+    smo = [None] * n
+    smo[-1] = flt2[-1]
+    for t in range(n - 2, -1, -1):
+        smo[t] = smooth_with_flow(flt2[t], smo[t + 1], fflow[t], focc[t], sigma,
+                                  ps, engine, bases, window_dtype)
     return torch.stack(smo)
 
 

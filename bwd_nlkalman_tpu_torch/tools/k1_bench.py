@@ -16,9 +16,10 @@ the card's name and power limit; the last line is the mean per tree.
 
 The timing and profiler helpers (:func:`cuda_ms`, :func:`stage_ms`,
 :func:`device_events`, :func:`kernel_ms`, :func:`busy_ms`), the inputs
-(:func:`nlk_inputs`, :func:`pass_args`) and the table of K1's patch
-sizes and channel counts (:func:`widened_cases`) serve ``chip_smoke.py``
-and the ``cuda`` tests too. Needs a CUDA device.
+(:func:`nlk_inputs`, :func:`pass_args`), the table of K1's patch
+sizes and channel counts (:func:`widened_cases`) and the parameter
+search's extremes (:func:`search_cases`) serve ``chip_smoke.py`` and the
+``cuda`` tests too. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -139,6 +140,35 @@ def widened_cases(patch_sizes, channels):
         p = dataclasses.replace(default_params(SIGMA, FilterMode(fm)), patch_sz=psz)
         out.append((psz, c, mode, has_prev, has_basic, fitted_params(p, c, mode)))
     return out
+
+
+def search_cases():
+    """(name, mode, has_prev, has_basic, NLKParams) of K1 at the parameter
+    search's extremes (the harness of ``train/search.py``): random search's
+    group sizes at npx 1 and 98 (nagg min(npx, 20), p=8, w=10, wt=5,
+    train.sh:40-102) with its betas at their range's ends (beta_x 0 makes
+    a lone patch's gain 0/0), and group sizes above the window's candidate
+    count, as coordinate descent reaches them (121 temporal candidates at
+    wt=5, 441 spatial ones at w=10)."""
+    import dataclasses
+
+    from bwd_nlkalman_tpu_torch.params import FilterMode, NLKParams, default_params
+
+    def rs(npx, bx, bt):
+        return NLKParams(patch_sz=8, search_sz_x=10, search_sz_t=5, npatches_x=npx,
+                         npatches_t=npx, npatches_tagg=min(npx, 20), dista_lambda=1.0,
+                         beta_x=bx, beta_t=bt)
+
+    big = dataclasses.replace(default_params(SIGMA, FilterMode.FLT1), npatches_t=150,
+                              npatches_x=500, npatches_tagg=20)
+    sbig = dataclasses.replace(default_params(SIGMA, FilterMode.SMO1), npatches_t=150,
+                               npatches_tagg=20)
+    return [("npx 1", "filter", True, False, rs(1, 0.0, 2.0)),
+            ("npx 98", "filter", True, False, rs(98, 7.99, 11.99)),
+            ("npx 98 first frame", "filter", False, False, rs(98, 7.99, 11.99)),
+            ("k above the candidates", "filter", True, False, big),
+            ("k above the candidates, first frame", "filter", False, False, big),
+            ("smoother k above the candidates", "smooth", True, False, sbig)]
 
 
 def k1_order_distances(diff, f: int):

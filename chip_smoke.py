@@ -79,10 +79,25 @@ arguments, one GPU). Phases, each reported on its own line:
    6 dB above the noisy frame, K1 3 launches, K4 (C=3) 3, no plain-route
    pass; ``--f1_p 7 --f2_p 0`` on a 270x480 crop takes the plain route
    with its warning (K1 0, one plain pass); ``--f1_p 4`` at 1080p runs K1;
-   ``awgn``, ``psnr``, ``decompose`` and ``recompose`` once each.
+   ``awgn``, ``psnr``, ``decompose`` and ``recompose`` once each;
+13. the parameter-search harness at the training protocol's size: 2 gray
+   clips of 400x400, 20 frames, sigma=20 (PSNR from frame 11, a 10-pixel
+   border): K1 at the searches' extreme parameters (npx 1 and 98, nagg 20,
+   group sizes above the window's candidates) against its plain pass by
+   share and mean error; ``cached_fixtures`` (K2 only; read back from the
+   cache with no launch); the default trial on the fixtures, without and
+   with smoothing, timed, and on one clip within 0.05 dB of the plain
+   versions; ``random_search`` (4 trials) on the fixtures; one
+   ``respect_lambda`` trial on the plain route with its warning;
+   ``line_search``, ``coordinate_descent``, ``gradient_descent`` and
+   ``grid_search_2d`` without fixtures, timed; a profiled trial with and
+   one without fixtures; every K1, K2 and K4 count equal to its formula
+   and K3 none; ``view_results`` on the table the searches wrote (each row
+   one trial that ran) and ``plambda`` (``-c`` on a trial's MSE, and on
+   two 400x400 PNGs).
 
 Every phase prints its seconds. Every launch counter is set to 0 just
-before each of the paths 4-7 and 9-12 and read just after. The second-to-last line is a JSON object with one entry
+before each of the paths 4-7 and 9-13 and read just after. The second-to-last line is a JSON object with one entry
 per kernel (K1's with a ``variants`` list: each widened case held, with
 its max abs error); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
@@ -1353,6 +1368,257 @@ def phase_cli_frame(smi):
         check(rec.shape == FULL + (3,) and np.isfinite(rec).all(), "recompose output bad")
 
 
+PROTO = (400, 400)      # the training protocol's crops (SURVEY.md:370): 400x400 gray
+PROTO_T = 20            # frames a clip, PSNR from frame 11 (first_frame=10)
+
+
+def protocol_clip(seed):
+    """A 400x400 gray clip of 20 frames (T, H, W, 1): bench.py's structured
+    field translated by (2, 1) pixels a frame, which never wraps."""
+    (h, w), t = PROTO, PROTO_T
+    rng = np.random.default_rng(seed)
+    base = np.cumsum(np.cumsum(rng.standard_normal((h + 2 * t, w + t)), axis=0), axis=1)
+    base = ((base - base.min()) / (base.max() - base.min()) * 175 + 40).astype(np.float32)
+    return np.stack([base[2 * i: 2 * i + h, i: i + w] for i in range(t)])[..., None]
+
+
+def phase_search(smi):
+    """The parameter-search harness (``bwd_nlkalman_tpu_torch.train``) at the
+    training protocol's size: 2 gray clips of 400x400, 20 frames, sigma=20,
+    PSNR from frame 11 with a 10-pixel border. Fixtures into a temporary
+    cache (then read back, no K2); random search on them; one trial with
+    LAMBDA_DISTANCE on the plain route; the line, coordinate, gradient and
+    2-D grid searches without fixtures; ``view_results`` and ``plambda`` on
+    what they wrote. Every K1, K2 and K4 count must equal its formula, K3
+    none; the default trial with the kernels within 0.05 dB of the plain
+    versions; K1 at the searches' extreme parameters against its plain pass;
+    each table row must parse back to the parameters that ran."""
+    import contextlib
+    import io
+    import tempfile
+    import warnings
+
+    import torch
+    from bwd_nlkalman_tpu_torch.cli import plambda as plambda_cli
+    from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
+    from bwd_nlkalman_tpu_torch.flow.tvl1 import num_scales
+    from bwd_nlkalman_tpu_torch.io import write_png
+    from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import nlk_inputs, search_cases
+    from bwd_nlkalman_tpu_torch.train import (Fixtures, ascii_landscape, best_rows,
+                                              cached_fixtures, coordinate_descent, evaluate,
+                                              gradient_descent, grid_search_2d, line_search,
+                                              load_table, random_search)
+    from bwd_nlkalman_tpu_torch.train.view_results import COLUMNS
+
+    (h, w), t, n_clips = PROTO, PROTO_T, 2
+    tag = "13 search"
+    clips = [protocol_clip(seed) for seed in range(n_clips)]
+    seeds = [[1000 * si + i for i in range(t)] for si in range(n_clips)]
+    defaults = [default_params(SIGMA, m) for m in (FilterMode.FLT1, FilterMode.FLT2,
+                                                   FilterMode.SMO1)]
+    levels = num_scales(w, h, 100, 0.5) - 1      # K2 levels of an fscale=1 flow
+    # launches a clip: a filtered frame 2 K1 and, after frame 0, 1 K4 (C=2);
+    # a smoothed frame 1 K1 and 1 K4; without fixtures a flow per K4 warp
+    k1_flt, k1_smo, k4_flt = 2 * t, t - 1, t - 1
+
+    def expect(launches, what, k1, k4, k2):
+        want = {"K1": k1, "K2": k2, "K3": 0, "K4": k4}
+        got = {k: launches[k] for k in want}
+        log(f"[{tag}] {what}: launches {got}, formula {want}")
+        check(got == want, f"{what}: launches {got}, formula {want}")
+
+    # K1 at the searches' extreme parameters, against its plain pass
+    rng = np.random.default_rng(40)
+    cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                               for a in nlk_inputs(rng, h, w, 1))
+    for name, mode, has_prev, has_basic, p in search_cases():
+        args = (cur, prev if has_prev else torch.zeros_like(cur),
+                valid if has_prev else torch.zeros_like(valid),
+                basic if has_basic else cur, SIGMA, p, mode, has_prev, has_basic)
+        got, want = dense_pass_cuda(*args), dense_pass_v2(*args)
+        diff = (got - want).abs()
+        share = float((diff > 5e-2 + 1e-3 * want.abs()).sum()) / want.numel()
+        mean = float(diff.mean())
+        log(f"[{tag}] K1 {name} ({mode}, np_x {p.npatches_x}, np_t {p.npatches_t}, nagg "
+            f"{p.npatches_tagg}, beta_x {p.beta_x:g}, beta_t {p.beta_t:g}) {h}x{w} gray: "
+            f"max abs err {float(diff.max()):.3e}, mean {mean:.3e} (<= {K1_FULL_MEAN:g}), "
+            f"share beyond rtol 1e-3 / atol 5e-2 {share:.2e} (<= {K1_FULL_SHARE:g})")
+        check(share <= K1_FULL_SHARE and mean <= K1_FULL_MEAN, f"K1 {name} off its plain pass")
+    del cur, prev, valid, basic, got, want, diff
+
+    with tempfile.TemporaryDirectory() as d:
+        cache, table = os.path.join(d, "fixtures"), os.path.join(d, "results.txt")
+        ran = []        # every TrialResult whose row was written to the table
+
+        # fixtures: the noisy-frame flows both ways, then the cache read back
+        counters = reset_counters()
+        secs = []
+        for si in range(n_clips):
+            t0 = time.perf_counter()
+            cached_fixtures(cache, f"clip{si}", clips[si], SIGMA, seeds[si])
+            secs.append(time.perf_counter() - t0)
+        expect(read_counters(counters, tag, ("K2",)), "fixtures of 2 clips", 0, 0,
+               n_clips * 2 * (t - 1) * levels)
+        counters = reset_counters()
+        fxs = [cached_fixtures(cache, f"clip{si}", clips[si], SIGMA, seeds[si])
+               for si in range(n_clips)]
+        expect({k: c.count for k, c in counters.items()}, "fixtures read from the cache",
+               0, 0, 0)
+        check(all(f.bflow.shape == (t, h, w, 2) and np.isfinite(f.bflow).all()
+                  and f.focc.shape == (t, h, w) for f in fxs), "fixtures bad")
+        log(f"[{tag}] fixtures of one {h}x{w}x{t} clip ({2 * (t - 1)} TV-L1 flows at lambda "
+            f"0.2, fscale 1, and their masks, to the host): {secs[0]:.3f} s, the second clip "
+            f"{secs[1]:.3f} s; mean |bflow| {float(np.abs(fxs[0].bflow).mean()):.3f} px, "
+            f"occluded {100 * float((fxs[0].bocc > 0).mean()):.2f}% ({smi})")
+        fx_dev = [Fixtures.to(f, "cuda") for f in fxs]     # one upload per search
+
+        # the default parameters on the fixtures, without and with smoothing
+        evaluate(clips[:1], SIGMA, *defaults, fixtures=fx_dev[:1], smoothing=False)
+        torch.cuda.synchronize()    # warm-up at this size
+        trial = {}
+        for smoothing in (False, True):
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            r = evaluate(clips, SIGMA, *defaults, fixtures=fx_dev, smoothing=smoothing)
+            trial[smoothing] = (time.perf_counter() - t0, r)
+            expect(read_counters(counters, tag, ("K1", "K4")),
+                   f"a fixtures trial, smoothing={smoothing}",
+                   n_clips * (k1_flt + smoothing * k1_smo),
+                   n_clips * k4_flt * (1 + smoothing), 0)
+        for smoothing, (s, r) in trial.items():
+            log(f"[{tag}] fixtures trial of the defaults, smoothing={smoothing}: {s:.3f} s, "
+                f"{n_clips * t / s:.2f} frames/s inside the trial; PSNR flt1 "
+                f"{r.psnr['flt1']:.3f} flt2 {r.psnr['flt2']:.3f} smo1 {r.psnr['smo1']:.3f} "
+                f"dB ({smi})")
+        r_def = trial[True][1]
+        noisy_psnr = 10 * np.log10(255.0 ** 2 / SIGMA ** 2)
+        check(r_def.psnr["smo1"] >= noisy_psnr + 6.0, "the default trial does not denoise")
+
+        # the same trial on one clip with the kernels and with the plain versions
+        res = {e: evaluate(clips[:1], SIGMA, *defaults, fixtures=fx_dev[:1], engine=e)
+               for e in ("auto", "plain")}
+        d_db = {k: abs(res["auto"].psnr[k] - res["plain"].psnr[k]) for k in res["auto"].psnr}
+        log(f"[{tag} vs plain] default trial on one clip, fixtures: kernels " + "/".join(
+            f"{res['auto'].psnr[k]:.4f}" for k in d_db) + " dB, plain " + "/".join(
+            f"{res['plain'].psnr[k]:.4f}" for k in d_db) + " dB (flt1/flt2/smo1), |d| " +
+            "/".join(f"{v:.4f}" for v in d_db.values()) + " (<= 0.05)")
+        check(max(d_db.values()) <= 0.05, "the search trial's kernels and plain versions disagree")
+
+        # random search on the fixtures
+        counters = reset_counters()
+        t0 = time.perf_counter()
+        rs = random_search(clips, SIGMA, 4, table_path=table, fixtures=fx_dev)
+        s_rs = time.perf_counter() - t0
+        expect(read_counters(counters, tag, ("K1", "K4")), "random search, 4 trials",
+               4 * n_clips * k1_flt, 4 * n_clips * k4_flt, 0)
+        ran += rs
+        log(f"[{tag}] random search, 4 trials on the fixtures: {s_rs / 4:.3f} s a trial; best "
+            f"np {rs[0].p1.npatches_x}, beta_x {rs[0].p1.beta_x:.3f}, beta_t "
+            f"{rs[0].p1.beta_t:.3f}: flt2 {rs[0].psnr['flt2']:.3f} dB ({smi})")
+
+        # one LAMBDA_DISTANCE trial: the first pass on the plain route, warned
+        counters = reset_counters()
+        PLAIN_PASSES.reset()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rl = random_search(clips[:1], SIGMA, 1, rng=np.random.default_rng(5),
+                               table_path=table, fixtures=fx_dev[:1], respect_lambda=True)
+        said = [str(x.message) for x in caught if "dista_lambda" in str(x.message)]
+        expect({k: c.count for k, c in counters.items()}, "a respect_lambda trial, one clip",
+               k1_flt - t, k4_flt, 0)
+        ran += rl
+        log(f"[{tag}] respect_lambda trial (lambda {rl[0].p1.dista_lambda:.3f}): plain-route "
+            f"passes {PLAIN_PASSES.count} ({t}), warning {said[:1]}")
+        check(PLAIN_PASSES.count == t and said, "the LAMBDA_DISTANCE pass did not take the plain route")
+
+        # the searches without fixtures: every trial runs its flows
+        per_trial = dict(k1=n_clips * (k1_flt + k1_smo), k4=n_clips * 2 * k4_flt,
+                         k2=n_clips * 2 * (t - 1) * levels)
+
+        def searched(what, run, n_trials):
+            counters = reset_counters()
+            t0 = time.perf_counter()
+            out = run()
+            secs = time.perf_counter() - t0
+            n = n_trials(out)
+            expect(read_counters(counters, tag, ("K1", "K2", "K4")), f"{what}, {n} trials",
+                   n * per_trial["k1"], n * per_trial["k4"], n * per_trial["k2"])
+            log(f"[{tag}] {what}: {n} trials without fixtures, {secs / n:.3f} s a trial, "
+                f"{n * n_clips * t / secs:.2f} frames/s ({smi})")
+            return out
+
+        ls = searched("line search over s1_bt", lambda: line_search(
+            clips, SIGMA, "s1_bt", [3.0, 6.0], table_path=table), len)
+        ran += [r for _, r in ls]
+        best, hist = searched("coordinate descent over s1_nt, 1 round", lambda: (
+            coordinate_descent(clips, SIGMA, fields=("s1_nt",), max_rounds=1,
+                               table_path=table)), lambda out: len(out[1]))
+        ran += hist[1:]
+        gd, betas = searched("gradient descent over f1_bx and s1_bt, 1 step", lambda: (
+            gradient_descent(clips, SIGMA, fields=("f1_bx", "s1_bt"), n_iters=1,
+                             table_path=table)), lambda out: 3)
+        ran += gd
+        grid = searched("2-D grid over fflow_lambda x f1_bx", lambda: grid_search_2d(
+            clips, SIGMA, "fflow_lambda", [0.2, 0.3], "f1_bx", [2.5, 3.5],
+            table_path=table), len)
+        ran += [r for _, r in grid]
+        log(f"[{tag}] line search best s1_bt {ls[0][0]:g} (smo1 {ls[0][1].psnr['smo1']:.3f} "
+            f"dB); coordinate descent best s1_nt {best.ps.npatches_t} (smo1 "
+            f"{best.psnr['smo1']:.3f} dB); gradient step f1_bx {betas['f1_bx']:.4f}, s1_bt "
+            f"{betas['s1_bt']:.4f}; grid best {grid[0][0]} (flt2 "
+            f"{grid[0][1].psnr['flt2']:.3f} dB)")
+        profile_slice(lambda: evaluate(clips, SIGMA, *defaults, fixtures=fx_dev),
+                      f"{tag} profile, a fixtures trial with smoothing", smi)
+        profile_slice(lambda: evaluate(clips, SIGMA, *defaults), f"{tag} profile, a trial "
+                      "without fixtures", smi)
+
+        # view_results and plambda on what the searches wrote
+        tab = load_table(table)
+        check(tab.shape == (len(ran), 16), f"table holds {tab.shape[0]} rows, {len(ran)} ran")
+        for row in tab:     # each row is one trial that ran, in any order
+            hit = next((r for r in ran if np.allclose(row[:13], table_params(r), rtol=0,
+                                                      atol=5e-4)
+                        and np.allclose(row[13:], [r.mse[k] for k in ("flt1", "flt2", "smo1")],
+                                        rtol=0, atol=5e-5, equal_nan=True)), None)
+            check(hit is not None, f"a table row {row.tolist()} is no trial that ran")
+            ran = [r for r in ran if r is not hit]
+        (sig, row, best_db), = best_rows(tab, "f2_mse")
+        land = ascii_landscape(tab, "f1_nx", "f1_bx", "f2_mse", bins=8)
+        log(f"[{tag}] view_results: {tab.shape[0]} rows parse back to the parameters that "
+            f"ran; best f2_mse at sigma {sig:g}: {row[COLUMNS.index('f2_mse')]:.4f} "
+            f"({best_db:.3f} dB); landscape: {land.splitlines()[0]}")
+        check(len(land.splitlines()) == 10, "ascii_landscape gave no 8-bin map")
+
+        def cli(argv):
+            buf = io.StringIO()
+            with contextlib.redirect_stdout(buf):
+                check(plambda_cli.main(argv) == 0, f"plambda {argv} failed")
+            return buf.getvalue().split()
+
+        m = r_def.mse["smo1"]
+        calc = float(cli(["-c", "255", repr(m), "sqrt", "/", "log10", "20", "*"])[0])
+        write_png(os.path.join(d, "clean.png"), clips[0][t - 1])
+        write_png(os.path.join(d, "noisy.png"), fxs[0].noisy[t - 1])
+        sq = cli([os.path.join(d, "clean.png"), os.path.join(d, "noisy.png"), "x y - 2 ^"])
+        q = lambda a: np.clip(np.round(a.astype(np.float64)), 0, 255)  # noqa: E731
+        mse_png = float(np.mean((q(clips[0][t - 1]) - q(fxs[0].noisy[t - 1])) ** 2))
+        log(f"[{tag}] plambda -c on the default trial's smo1 MSE {m:.4f}: {calc:g} dB "
+            f"(trial {r_def.psnr['smo1']:.4f}, one sequence: {10 * np.log10(255 ** 2 / m):.4f}); "
+            f"plambda 'x y - 2 ^' on two {h}x{w} PNGs: mean {sq[0]} (numpy {mse_png:.4f})")
+        check(abs(calc - 10 * np.log10(255.0 ** 2 / m)) <= 1e-3, "plambda -c disagrees")
+        check(abs(float(sq[0]) - mse_png) <= 1e-3 * mse_png, "plambda on the PNGs disagrees")
+
+
+def table_params(r):
+    """The 13 parameter columns of ``r``'s results-table row, as numbers."""
+    return [r.sigma, r.p1.npatches_x, r.p1.beta_x, r.p1.npatches_t, r.p1.npatches_tagg,
+            r.p1.beta_t, r.p2.npatches_x, r.p2.beta_x, r.p2.npatches_t,
+            r.p2.npatches_tagg, r.p2.beta_t, r.ps.npatches_t, r.ps.beta_t]
+
+
 # the kernels of each, by the start of their names as torch.profiler shows them
 KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
                 "K2": ("level_kernel",), "K3": ("stage_kernel",), "K4": ("warp_tile_kernel",)}
@@ -1402,6 +1668,7 @@ def main() -> int:
     timed("10 nlkalman-seq lsmo", phase_cli_lsmo, smi)
     timed("11 multiscale", phase_multiscale, smi)
     timed("12 per-frame commands", phase_cli_frame, smi)
+    timed("13 search", phase_search, smi)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)
