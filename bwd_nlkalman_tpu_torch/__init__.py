@@ -14,8 +14,11 @@ by ``_build.py``:
 Each kernel runs on CUDA tensors; on CPU tensors its plain PyTorch
 version runs instead. Entry points (``NLKalmanDenoiser``,
 ``StreamingDenoiser``, ``MultiscaleDenoiser``, ``models.get_model``, the
-CLIs under ``cli/``) run on the card unless asked for the CPU. This
-package imports neither JAX nor the JAX package.
+CLIs under ``cli/``) run on the card unless asked for the CPU.
+``parallel`` shards the NLK passes' rows over a mesh of devices with halo
+exchange (K1 on each shard's own sites), runs the sharded sequence and
+spreads a batch of clips over the mesh's 'dp' axis. This package imports
+neither JAX nor the JAX package.
 """
 
 __version__ = "0.1.0"

@@ -45,10 +45,11 @@ SIGNATURES = {
     "bnlk_probe": [_P, _P, _I, _I, _I, _I, _I, _I, _P],
     "bnlk_nlk_dct": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bnlk_nlk_sites": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                       _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _P],
+                       _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _I, _I, _I, _I,
+                       _I, _I, _P],
     "bnlk_nlk_aggregate": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
-                           _I, _I, _I, _I, _P],
-    "bnlk_nlk_fold": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+                           _I, _I, _I, _I, _I, _I, _P],
+    "bnlk_nlk_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

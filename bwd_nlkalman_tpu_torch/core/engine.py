@@ -30,6 +30,13 @@ two-pass variances clamped at 0; Kalman (temporal) or Wiener (spatial)
 update; aggregation of the first ``nagg`` members through DCT-domain
 gain/bias fields; one inverse DCT and Gaussian-window fold; pixels no
 patch covers copy the input.
+
+A shard of the sharded passes (``parallel/spatial.py``) gives the three
+arguments of the JAX package's sharded form (``engine.py:112-114``):
+``site_rows`` and ``qy_bounds`` keep the sites to the shard's own rows
+and the candidates to the global patch rows (``site_range``), and
+``return_accum`` returns the sums and their weights before the
+normalisation. At their defaults the pass is the whole frame's.
 """
 
 from __future__ import annotations
@@ -42,7 +49,7 @@ from ..ops.bases import basis
 from ..ops.dct import _ortho_basis_kron_np, _ortho_basis_np, dct_image_all_patches
 from ..ops.windows import window_np
 from ..params import NLKParams
-from .engine_cuda import dense_pass_cuda, pass_radius
+from .engine_cuda import dense_pass_cuda, pass_radius, site_range
 
 _INF_BITS = int(np.float32(np.inf).view(np.int32))
 _ROWS_PER_BLOCK = 4   # site rows per block: bounds the window tensors
@@ -98,8 +105,14 @@ def round_band(band: torch.Tensor, window_dtype: str) -> torch.Tensor:
 
 def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
                   mode: str, has_prev: bool, has_basic: bool,
-                  bases=None, window_dtype: str = "float32") -> torch.Tensor:
-    """Plain version of K1: one filter or smoother pass over (H, W, C) frames."""
+                  bases=None, window_dtype: str = "float32", site_rows=None,
+                  qy_bounds=None, return_accum: bool = False):
+    """Plain version of K1: one filter or smoother pass over (H, W, C) frames.
+
+    ``site_rows=(start, stop)`` (local site rows) and ``qy_bounds=(lo,
+    hi)`` (local patch rows) restrict the sites and candidates as
+    ``engine_cuda.site_range`` says; ``return_accum`` returns ``(out_acc
+    (H, W, C), agg (H, W))`` before the normalisation."""
     h, w, ch = cur.shape
     dev = cur.device
     psz = prms.patch_sz
@@ -113,8 +126,8 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     centre = rad * n_off1 + rad
     np_t, np_x, nagg = prms.npatches_t, prms.npatches_x, prms.npatches_tagg
     beta_x, beta_t = prms.beta_x, prms.beta_t
-    ny = (hh - 1) // step + 1
     nx = (ww - 1) // step + 1
+    row_lo, row_hi, qy_lo, qy_hi = site_range(h, psz, site_rows, qy_bounds)
 
     x_img = basic if has_basic else cur
 
@@ -145,11 +158,11 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     px = step * torch.arange(nx, device=dev)
     sub = 0.0 if has_basic else sigma2
 
-    for r0 in range(0, ny, _ROWS_PER_BLOCK):
-        py = step * torch.arange(r0, min(r0 + _ROWS_PER_BLOCK, ny), device=dev)
+    for r0 in range(row_lo, row_hi, _ROWS_PER_BLOCK):
+        py = step * torch.arange(r0, min(r0 + _ROWS_PER_BLOCK, row_hi), device=dev)
         qy = py[None, :, None] + oy_t[:, None, None]          # (O, R, 1)
         qx = px[None, None, :] + ox_t[:, None, None]          # (O, 1, nx)
-        cand = (qy >= 0) & (qy < hh) & (qx >= 0) & (qx < ww)  # (O, R, nx)
+        cand = (qy >= qy_lo) & (qy < qy_hi) & (qx >= 0) & (qx < ww)  # (O, R, nx)
         qidx = qy.clamp(0, hh - 1) * ww + qx.clamp(0, ww - 1)
         wx = xd[qidx]                                         # (O, R, nx, F)
         xp = wx[centre]
@@ -261,13 +274,15 @@ def dense_pass_v2(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
     fields = [g_acc[:, i * f:(i + 1) * f].reshape(hh, ww, f) for i in range(n_acc)]
     return finalize_fields(fields, w_acc.reshape(hh, ww), nd.reshape(hh, ww, f),
                            None if dd is None else dd.reshape(hh, ww, f),
-                           mode, psz, cur, bases)
+                           mode, psz, cur, bases, return_accum)
 
 
-def finalize_fields(fields, w_field, nd, dd, mode, psz, cur, bases=None):
+def finalize_fields(fields, w_field, nd, dd, mode, psz, cur, bases=None,
+                    return_accum: bool = False):
     """Aggregated DCT-domain gain/bias fields -> filtered frame: one
     inverse DCT, the Gaussian-window fold, then normalise-or-copy-input
-    [src/nlkalman.c:940-942]."""
+    [src/nlkalman.c:940-942]; with ``return_accum`` the fold's sums and
+    weights (out_acc, agg) as they are."""
     h, w, ch = cur.shape
     hh, ww = h - psz + 1, w - psz + 1
     fd = fields[0] * nd + fields[1]
@@ -283,6 +298,8 @@ def finalize_fields(fields, w_field, nd, dd, mode, psz, cur, bases=None):
             wv = float(wnp[dy, dx])
             out[dy: dy + hh, dx: dx + ww] += wv * pix[..., dy * psz + dx]
             agg[dy: dy + hh, dx: dx + ww] += wv * w_field
+    if return_accum:
+        return out, agg
     covered = agg > 1e-6
     return torch.where(covered[..., None],
                        out / torch.clamp(agg, min=1e-6)[..., None], cur)
@@ -291,14 +308,17 @@ def finalize_fields(fields, w_field, nd, dd, mode, psz, cur, bases=None):
 def dense_pass(cur, prev, prev_valid, basic, sigma: float, prms: NLKParams,
                mode: str, has_prev: bool, has_basic: bool,
                engine: str = "auto", bases=None,
-               window_dtype: str = "float32") -> torch.Tensor:
+               window_dtype: str = "float32", site_rows=None, qy_bounds=None,
+               return_accum: bool = False):
     """One NLK pass: K1 on CUDA tensors, :func:`dense_pass_v2` on CPU tensors.
 
     ``engine="plain"`` runs the plain version on any device. K1 raises for
-    a pass it does not take; the frame passes of ``core.nlkalman`` decide
-    the engine first."""
+    a pass it does not take; the frame passes of ``core.nlkalman`` and the
+    sharded passes decide the engine first. ``site_rows``, ``qy_bounds``
+    and ``return_accum`` go to either as they are (a shard's pass)."""
+    shard = dict(site_rows=site_rows, qy_bounds=qy_bounds, return_accum=return_accum)
     if use_kernel(cur, engine):
         return dense_pass_cuda(cur, prev, prev_valid, basic, sigma, prms, mode,
-                               has_prev, has_basic, bases, window_dtype)
+                               has_prev, has_basic, bases, window_dtype, **shard)
     return dense_pass_v2(cur, prev, prev_valid, basic, sigma, prms, mode,
-                         has_prev, has_basic, bases, window_dtype)
+                         has_prev, has_basic, bases, window_dtype, **shard)

@@ -9,10 +9,18 @@ fold stay float32). Its plain PyTorch version is
 :func:`bwd_nlkalman_tpu_torch.core.engine.dense_pass_v2` with the same
 ``window_dtype``. One call launches the kernel's four stages (patch DCT
 of each band, the per-site pass, aggregation with the inverse DCT, fold
-and normalise) and counts as one launch of K1. :func:`site_plan` sizes
-the site stage's launch (sites per block, dynamic shared memory) and
-:func:`plan_refusal` says why K1 does not take a pass; the kernel checks
-the size it is given against its own layout.
+and normalise) and counts as one launch of K1.
+
+The sharded form of the TPU kernel (``dense_pass_pallas``'s
+``site_rows``, ``qy_bounds`` and ``return_accum``,
+``engine_pallas.py:1330-1346``) is K1's too: the site stage launches over
+a shard's own site rows only (:func:`site_range`), its candidates keep to
+the global patch-row bounds, and the fold can return the sums and their
+weights before the normalisation. The bounds are launch arguments.
+
+:func:`site_plan` sizes the site stage's launch (sites per block, dynamic
+shared memory) and :func:`plan_refusal` says why K1 does not take a
+pass; the kernel checks the size it is given against its own layout.
 """
 
 from __future__ import annotations
@@ -49,6 +57,25 @@ def pass_radius(prms: NLKParams, mode: str) -> int:
     if mode == "filter":
         return max(prms.search_sz_x, prms.search_sz_t)
     return prms.search_sz_t
+
+
+def site_range(h: int, psz: int, site_rows=None, qy_bounds=None):
+    """(r0, r1, qlo, qhi): the site rows ``[r0, r1)`` a pass over ``h``
+    rows computes and the patch rows ``[qlo, qhi)`` its candidates may lie
+    on, with the JAX package's meaning (``core/engine.py:124-128, 246-250``):
+    a site of row r counts where ``start <= r < stop`` (``site_rows``; stop
+    clipped to the grid) and its own row ``psz/2 * r`` lies in ``[lo, hi)``
+    (``qy_bounds``, local patch rows); a candidate counts where its row lies
+    there. The defaults are the whole grid and the whole frame; both
+    ranges are clipped to the frame."""
+    step = psz // 2
+    hh = h - psz + 1
+    ny = (hh - 1) // step + 1
+    start, stop = (0, ny) if site_rows is None else (int(site_rows[0]), int(site_rows[1]))
+    lo, hi = (0, hh) if qy_bounds is None else (int(qy_bounds[0]), int(qy_bounds[1]))
+    r0 = max(start, -(-lo // step), 0)
+    r1 = max(r0, min(stop, ny, -(-hi // step)))
+    return r0, r1, max(lo, 0), min(hi, hh)
 
 
 def _site_smem(sites: int, c: int, rad: int, psz: int, band_bytes: int) -> int:
@@ -112,19 +139,22 @@ def _f32(x: float) -> float:
 
 def dense_pass_cuda(cur, prev, prev_valid, basic, sigma: float,
                     prms: NLKParams, mode: str, has_prev: bool,
-                    has_basic: bool, bases=None,
-                    window_dtype: str = "float32") -> torch.Tensor:
+                    has_basic: bool, bases=None, window_dtype: str = "float32",
+                    site_rows=None, qy_bounds=None, return_accum: bool = False):
     """Kernel version of ``dense_pass_v2`` (same arguments and result)."""
     return pass_with_weights(cur, prev, prev_valid, basic, sigma, prms, mode,
-                             has_prev, has_basic, bases, window_dtype)[0]
+                             has_prev, has_basic, bases, window_dtype, site_rows,
+                             qy_bounds, return_accum)[0]
 
 
 def pass_with_weights(cur, prev, prev_valid, basic, sigma: float,
                       prms: NLKParams, mode: str, has_prev: bool,
-                      has_basic: bool, bases=None, window_dtype: str = "float32"):
+                      has_basic: bool, bases=None, window_dtype: str = "float32",
+                      site_rows=None, qy_bounds=None, return_accum: bool = False):
     """:func:`dense_pass_cuda` and the aggregated weight of each patch
     position, (H-psz+1, W-psz+1) float32: 0 where no site chose the
-    position."""
+    position. With ``return_accum`` the first is ``(out_acc (H, W, C),
+    agg (H, W))``, the sums before the normalisation."""
     h, w, ch = cur.shape
     dev = cur.device
     psz = prms.patch_sz
@@ -151,7 +181,8 @@ def pass_with_weights(cur, prev, prev_valid, basic, sigma: float,
     f = ch * psz * psz
     step = psz // 2
     hh, ww = h - psz + 1, w - psz + 1
-    n_sites = ((hh - 1) // step + 1) * ((ww - 1) // step + 1)
+    r0, r1, qlo, qhi = site_range(h, psz, site_rows, qy_bounds)
+    n_sites = (r1 - r0) * ((ww - 1) // step + 1)
     stream = ctypes.c_void_p(stream_ptr(dev))
     dmat = basis(bases, ("dct", psz), _ortho_basis_np, dev)
     win = basis(bases, ("window", psz), window_np, dev)
@@ -185,7 +216,7 @@ def pass_with_weights(cur, prev, prev_valid, basic, sigma: float,
          prms.npatches_x, prms.npatches_tagg, _f32(sigma2),
          _f32(prms.beta_t * sigma2), _f32(prms.beta_x * sigma2),
          _f32(prms.beta_t), 0.0 if has_basic else _f32(sigma2), sites, smem,
-         stream)
+         r0, r1, qlo, qhi, stream)
 
     pixw = torch.empty((hh, ww, f), dtype=torch.float32, device=dev)
     wq = torch.empty((hh, ww), dtype=torch.float32, device=dev)
@@ -194,10 +225,12 @@ def pass_with_weights(cur, prev, prev_valid, basic, sigma: float,
          nband.data_ptr(),
          None if d_for_gain is None else d_for_gain.data_ptr(),
          dmat.data_ptr(), win.data_ptr(), pixw.data_ptr(), wq.data_ptr(),
-         hh, ww, ch, psz, bf16, int(smooth), rad, stream)
+         hh, ww, ch, psz, bf16, int(smooth), rad, r0, r1, stream)
 
     out = torch.empty((h, w, ch), dtype=torch.float32, device=dev)
+    agg = torch.empty((h, w), dtype=torch.float32, device=dev) if return_accum else None
     call("bnlk_nlk_fold", pixw.data_ptr(), wq.data_ptr(), win.data_ptr(),
-         cur.data_ptr(), out.data_ptr(), h, w, ch, psz, stream)
+         cur.data_ptr(), out.data_ptr(), None if agg is None else agg.data_ptr(),
+         h, w, ch, psz, stream)
     LAUNCHES.add()
-    return out, wq
+    return ((out, agg) if return_accum else out), wq

@@ -38,6 +38,23 @@
 //      positions of weight 0, and normalises; a pixel no patch covers
 //      copies the input (engine_pallas.py:1551-1555).
 //
+// The sharded form (dense_pass_pallas's site_rows, qy_bounds and
+// return_accum, engine_pallas.py:1330-1346): a shard passes its
+// halo-extended block, the site rows it owns and the global patch-row
+// bounds in its own coordinates. The site stage launches over the owned
+// rows only and writes their vectors from row 0 of spec/wgt/mask; its
+// candidate rows keep to the bounds (the window's and the staged strip's);
+// the aggregation gathers from those rows only, so it reads nothing the
+// site stage did not write; and the fold can write the sums and their
+// weights unnormalised, for the shards to fold together before the
+// normalisation. The bounds are launch arguments (the host knows the shard
+// geometry): at their defaults (every row, 0..hh) the bands, selections
+// and output are those of the kernel before it took shards, bit for bit
+// (the weight's two-product sums are written with rounding intrinsics, in
+// the order that kernel's build fused them: reading the bounds changed how
+// the compiler fused them, which moved the weights by an ulp). A shard
+// still takes the DCT and the fold over its whole extended block.
+//
 // Only warp-local shared-memory atomics build the select's histograms, so
 // a pass is deterministic.
 //
@@ -131,7 +148,7 @@ int sites_with(const void* xband, const void* dband, const void* pval, void* spe
                void* wgt, void* mask, int hh, int ww, int f, int psz, int smooth,
                int has_prev, int rad, int rad_t, int np_t, int np_x, int nagg,
                float sigma2, float bts, float bxs, float beta_t, float sub, int sites,
-               int smem, cudaStream_t st) {
+               int smem, int row0, int row1, int qlo, int qhi, cudaStream_t st) {
   using namespace bnlk_nlk;
   const int pw = f * (int)sizeof(T) / 4 + 1, step = psz / 2;
   const size_t need = site_region_bytes(sites, rad, step, pw) +
@@ -149,6 +166,10 @@ int sites_with(const void* xband, const void* dband, const void* pval, void* spe
   a.ww = ww;
   a.ny = (hh - 1) / step + 1;
   a.nx = (ww - 1) / step + 1;
+  a.row0 = row0;
+  a.row1 = row1;
+  a.qlo = qlo;
+  a.qhi = qhi;
   a.n_words = (n1 * n1 + 31) / 32;
   a.sites = sites;
   a.runs = (a.nx + sites - 1) / sites;
@@ -172,7 +193,7 @@ template <typename T>
 int aggregate_with(const void* spec, const void* wgt, const void* mask,
                    const void* nband, const void* dband, const void* dmat,
                    const void* win, void* pixw, void* wq, int hh, int ww, int c, int psz,
-                   int smooth, int rad, cudaStream_t st) {
+                   int smooth, int rad, int r0, int r1, cudaStream_t st) {
   using namespace bnlk_nlk;
   const int n1 = 2 * rad + 1, step = psz / 2;
   AggArgs<T> a;
@@ -189,6 +210,8 @@ int aggregate_with(const void* spec, const void* wgt, const void* mask,
   a.ww = ww;
   a.ny = (hh - 1) / step + 1;
   a.nx = (ww - 1) / step + 1;
+  a.r0 = r0;
+  a.r1 = r1;
   a.smooth = smooth;
   a.rad = rad;
   a.n_words = (n1 * n1 + 31) / 32;
@@ -214,46 +237,62 @@ extern "C" int bnlk_nlk_dct(const void* img, const void* valid, const void* dmat
 }
 
 // sites: sites (warps) per block; smem: the dynamic shared bytes the
-// wrapper's launch plan gives, checked against the kernel's layout
+// wrapper's launch plan gives, checked against the kernel's layout.
+// [row0, row1): the site rows to launch, whose gain vectors, weights and
+// masks fill spec, wgt and mask from row0 on (the whole grid 0..ny, or a
+// shard's own rows, engine_pallas.py:336-337); [qlo, qhi): the patch rows
+// a candidate may lie on (0..hh, or a shard's global bounds clipped to its
+// block, :524), which must hold every launched site's own row
 extern "C" int bnlk_nlk_sites(const void* xband, const void* dband,
                               const void* pval, void* spec, void* wgt,
                               void* mask, int hh, int ww, int c, int psz, int bf16,
                               int smooth, int has_prev, int rad, int rad_t, int np_t,
                               int np_x, int nagg, float sigma2, float bts,
                               float bxs, float beta_t, float sub, int sites,
-                              int smem, void* stream) {
+                              int smem, int row0, int row1, int qlo, int qhi,
+                              void* stream) {
+  const int step = psz / 2;
   if (!takes(c, psz) || rad < 0 || rad > kMaxRad || sites < 1 || sites > kMaxSites ||
-      hh < 1 || ww < 1)
+      hh < 1 || ww < 1 || row0 < 0 || row1 < row0 || row1 > (hh - 1) / step + 1 ||
+      qlo < 0 || qhi > hh ||
+      (row1 > row0 && (step * row0 < qlo || step * (row1 - 1) >= qhi)))
     return (int)cudaErrorInvalidValue;
   const int f = c * psz * psz;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return sites_with<__nv_bfloat16>(xband, dband, pval, spec, wgt, mask, hh, ww, f, psz,
                                      smooth, has_prev, rad, rad_t, np_t, np_x, nagg,
-                                     sigma2, bts, bxs, beta_t, sub, sites, smem, st);
+                                     sigma2, bts, bxs, beta_t, sub, sites, smem, row0,
+                                     row1, qlo, qhi, st);
   return sites_with<float>(xband, dband, pval, spec, wgt, mask, hh, ww, f, psz, smooth,
                            has_prev, rad, rad_t, np_t, np_x, nagg, sigma2, bts, bxs,
-                           beta_t, sub, sites, smem, st);
+                           beta_t, sub, sites, smem, row0, row1, qlo, qhi, st);
 }
 
+// [r0, r1): the site rows bnlk_nlk_sites launched (its row0, row1); the
+// gather reads those sites only
 extern "C" int bnlk_nlk_aggregate(const void* spec, const void* wgt,
                                   const void* mask, const void* nband,
                                   const void* dband, const void* dmat,
                                   const void* win, void* pixw, void* wq,
                                   int hh, int ww, int c, int psz, int bf16, int smooth,
-                                  int rad, void* stream) {
-  if (!takes(c, psz) || rad < 0 || rad > kMaxRad) return (int)cudaErrorInvalidValue;
+                                  int rad, int r0, int r1, void* stream) {
+  if (!takes(c, psz) || rad < 0 || rad > kMaxRad || r0 < 0 || r1 < r0 ||
+      r1 > (hh - 1) / (psz / 2) + 1)
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   if (bf16)
     return aggregate_with<__nv_bfloat16>(spec, wgt, mask, nband, dband, dmat, win, pixw,
-                                         wq, hh, ww, c, psz, smooth, rad, st);
+                                         wq, hh, ww, c, psz, smooth, rad, r0, r1, st);
   return aggregate_with<float>(spec, wgt, mask, nband, dband, dmat, win, pixw, wq, hh, ww,
-                               c, psz, smooth, rad, st);
+                               c, psz, smooth, rad, r0, r1, st);
 }
 
+// agg_out null: the normalised frame into out; else the unnormalised sums
+// into out and their weights into agg_out, (h, w) float32
 extern "C" int bnlk_nlk_fold(const void* pixw, const void* wq,
                              const void* win, const void* cur, void* out,
-                             int h, int w, int c, int psz, void* stream) {
+                             void* agg_out, int h, int w, int c, int psz, void* stream) {
   if (!takes(c, psz)) return (int)cudaErrorInvalidValue;
   const int n = h * w, threads = 256;
   const dim3 grid((n + threads - 1) / threads);
@@ -261,12 +300,15 @@ extern "C" int bnlk_nlk_fold(const void* pixw, const void* wq,
   const float *pw = (const float*)pixw, *q = (const float*)wq, *wn = (const float*)win,
               *cu = (const float*)cur;
   float* o = (float*)out;
+  float* ag = (float*)agg_out;
 #define BNLK_FOLD(P)                                                               \
   case P:                                                                          \
     if (c <= 3)                                                                    \
-      bnlk_nlk::fold_kernel<P, 3><<<grid, threads, 0, st>>>(pw, q, wn, cu, o, h, w, c); \
+      bnlk_nlk::fold_kernel<P, 3><<<grid, threads, 0, st>>>(pw, q, wn, cu, o, ag, h, w, \
+                                                             c);                        \
     else                                                                           \
-      bnlk_nlk::fold_kernel<P, 7><<<grid, threads, 0, st>>>(pw, q, wn, cu, o, h, w, c); \
+      bnlk_nlk::fold_kernel<P, 7><<<grid, threads, 0, st>>>(pw, q, wn, cu, o, ag, h, w, \
+                                                             c);                        \
     break;
   switch (psz) {
     BNLK_FOLD(2) BNLK_FOLD(4) BNLK_FOLD(6) BNLK_FOLD(8)

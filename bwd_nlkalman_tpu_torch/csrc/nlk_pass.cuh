@@ -119,13 +119,16 @@ struct SiteArgs {
   const T* dband;       // (hh, ww, F) previous frame, or null
   const uint8_t* pval;  // (hh, ww) previous patch validity, or null
   float* spec;          // (n_sites, 2, F): gain | bias, or the smoother's
-                        // gain_n | gain_d
+                        // gain_n | gain_d; the launched site rows only
   float* wgt;           // (n_sites,)
   uint32_t* mask;       // (n_sites, n_words) member bits over offsets
   int hh, ww, ny, nx, n_words, sites, runs, f;
   int smooth, has_prev;
   int rad, rad_t, np_t, np_x, nagg;
   float sigma2, bts, bxs, beta_t, sub;
+  // the site rows launched, [row0, row1), and the candidate patch rows
+  // [qlo, qhi): the whole grid and frame, or a shard's own rows and bounds
+  int row0, row1, qlo, qhi;
 };
 
 template <typename T>
@@ -140,6 +143,7 @@ struct AggArgs {
   float* pixw;          // (hh, ww, F) windowed inverse-DCT patches
   float* wq;            // (hh, ww) aggregated weights
   int hh, ww, ny, nx, smooth, rad, n_words, c;
+  int r0, r1;           // the site rows the site stage wrote: [r0, r1)
 };
 
 namespace {
@@ -370,7 +374,7 @@ __global__ void __launch_bounds__(32 * kMaxSites, CC == 1 ? 4 : 1) site_kernel(S
   constexpr int step = PSZ / 2;
   const int S = a.sites, wi = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int n1 = 2 * a.rad + 1, n_off = n1 * n1;
-  const int row = blockIdx.x / a.runs, j0 = (blockIdx.x % a.runs) * S;
+  const int row = a.row0 + blockIdx.x / a.runs, j0 = (blockIdx.x % a.runs) * S;
   const int j = j0 + wi;
   const bool active = j < a.nx;
   const int py = step * row, px = step * j;
@@ -399,12 +403,12 @@ __global__ void __launch_bounds__(32 * kMaxSites, CC == 1 ? 4 : 1) site_kernel(S
     if (!a.smooth && prev_p) r_s = r_small;
   }
   const int r_b = __syncthreads_or(active && r_s != r_small) ? a.rad : r_small;
-  const int oy_lo = max(-r_s, -py), oy_hi = min(r_s, a.hh - 1 - py);
+  const int oy_lo = max(-r_s, a.qlo - py), oy_hi = min(r_s, a.qhi - 1 - py);
   const int ox_lo = max(-r_s, -px), ox_hi = min(r_s, a.ww - 1 - px);
   const int nxc = ox_hi - ox_lo + 1, n_c = (oy_hi - oy_lo + 1) * nxc;
 
   // the block's window rows and columns; two x-band rows per stage
-  const int by0 = max(-r_b, -py), by1 = min(r_b, a.hh - 1 - py);
+  const int by0 = max(-r_b, a.qlo - py), by1 = min(r_b, a.qhi - 1 - py);
   const int x0 = step * j0 - r_b;
   const int xa = max(x0, 0);
   const int xb = min(step * (min(j0 + S, a.nx) - 1) + r_b, a.ww - 1);
@@ -523,7 +527,7 @@ __global__ void __launch_bounds__(32 * kMaxSites, CC == 1 ? 4 : 1) site_kernel(S
   const float np1s = fmaxf((float)np1, 1.0f), np0s = fmaxf((float)np0, 1.0f);
   const float naggf = (float)a.nagg;
   const bool temporal = np0 > 0;
-  const int s = row * a.nx + j;
+  const int s = (row - a.row0) * a.nx + j;  // among the launched rows
   float* spec = a.spec + (size_t)s * 2 * F;
   float vp_part = 0.0f;
   // group statistics and gains, NCH coefficients per lane at a time
@@ -585,15 +589,27 @@ __global__ void __launch_bounds__(32 * kMaxSites, CC == 1 ? 4 : 1) site_kernel(S
         const float a_x = v_x / (v_x + a.bxs);
         const float gain = temporal ? a_t : a_x;
         const float m_ref = temporal ? m0 : m1c + xp[f];
-        vp_part += temporal ? (1.0f - a_t * a_t) * v_t + a_t * a_t * a.sigma2
-                            : a_x * v_x;
+        // the weight's terms are rounded as written (intrinsics, which no
+        // compiler fuses): a sum of two products can be fused either way,
+        // and two builds of this kernel did fuse it differently, moving the
+        // weights by an ulp; this is the order K1 computed before it took
+        // shards (the second product fused, the first rounded)
+        if (temporal) {
+          const float at2 = __fmul_rn(a_t, a_t);
+          vp_part = __fadd_rn(vp_part, __fmaf_rn(at2, a.sigma2,
+                                                 __fmul_rn(v_t, __fsub_rn(1.0f, at2))));
+        } else {
+          vp_part = __fadd_rn(vp_part, __fmul_rn(a_x, v_x));
+        }
         g0 = gain;
         g1 = (1.0f - gain) * m_ref;
       } else {
-        const float denom = v1 + a.beta_t * v01;
+        const float bv01 = __fmul_rn(a.beta_t, v01);
+        const float denom = __fadd_rn(v1, bv01);
         const float gain = denom > 0.0f ? v1 / fmaxf(denom, 1e-30f) : 0.0f;
-        vp_part += (1.0f - gain * gain) * v1 +
-                   gain * gain * fmaxf(v0 - a.beta_t * v01, 0.0f);
+        const float g2 = __fmul_rn(gain, gain);  // rounded as written, as above
+        vp_part = __fadd_rn(vp_part, __fmaf_rn(g2, fmaxf(__fsub_rn(v0, bv01), 0.0f),
+                                               __fmul_rn(v1, __fsub_rn(1.0f, g2))));
         // passthrough where np0 == 0 [src/nlkalman.c:1795-1804]; the
         // smoother has no bias, so its second row is gain_d
         g0 = temporal ? 1.0f - gain : 1.0f;
@@ -677,9 +693,10 @@ __global__ void aggregate_kernel(AggArgs<T> a) {
   }
   for (int q = blockIdx.x * kAggWarps + wi; q < n_q; q += gridDim.x * kAggWarps) {
     const int qy = q / a.ww, qx = q % a.ww;
-    // the sites whose window holds q: step i in [qy - rad, qy + rad], same in x
-    const int i0 = qy > a.rad ? (qy - a.rad + step - 1) / step : 0;
-    const int i1 = min(a.ny - 1, (qy + a.rad) / step);
+    // the sites whose window holds q: step i in [qy - rad, qy + rad], same in x,
+    // among the rows the site stage wrote
+    const int i0 = max(a.r0, qy > a.rad ? (qy - a.rad + step - 1) / step : 0);
+    const int i1 = min(a.r1 - 1, (qy + a.rad) / step);
     const int j0 = qx > a.rad ? (qx - a.rad + step - 1) / step : 0;
     const int j1 = min(a.nx - 1, (qx + a.rad) / step);
     const int nj = j1 - j0 + 1, n_cell = (i1 - i0 + 1) * nj;
@@ -701,7 +718,7 @@ __global__ void aggregate_kernel(AggArgs<T> a) {
         if (cell < n_cell) {
           const int i = i0 + cell / nj, jj = j0 + cell % nj;
           const int o = (qy - step * i + a.rad) * n1 + (qx - step * jj + a.rad);
-          sl = i * a.nx + jj;
+          sl = (i - a.r0) * a.nx + jj;
           mem = (a.mask[(size_t)sl * a.n_words + (o >> 5)] >> (o & 31)) & 1u;
           if (mem) wl = a.wgt[sl];
         }
@@ -788,13 +805,18 @@ __global__ void aggregate_kernel(AggArgs<T> a) {
 }
 
 // ------------------------------------------------------------- 4. fold
-// CMAX: 3 or 7, the most channels the instance's accumulators hold
+// CMAX: 3 or 7, the most channels the instance's accumulators hold.
+// agg_out null: normalise, copying the input where no patch covers a
+// pixel; else write the sums and their weights as they are (a shard's
+// accumulators, engine_pallas.py:1548-1549), to be folded with its
+// neighbours' before the normalisation
 template <int PSZ, int CMAX>
 __global__ void fold_kernel(const float* __restrict__ pixw,
                             const float* __restrict__ wq,
                             const float* __restrict__ win,
                             const float* __restrict__ cur,
-                            float* __restrict__ out, int h, int w, int c) {
+                            float* __restrict__ out, float* __restrict__ agg_out,
+                            int h, int w, int c) {
   constexpr int K = PSZ * PSZ;
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= h * w) return;
@@ -818,6 +840,13 @@ __global__ void fold_kernel(const float* __restrict__ pixw,
         if (ci < c) acc[ci] += pixw[q * F + ci * K + dy * PSZ + dx];
       agg += win[dy * PSZ + dx] * wgt;
     }
+  }
+  if (agg_out != nullptr) {
+#pragma unroll
+    for (int ci = 0; ci < CMAX; ++ci)
+      if (ci < c) out[(size_t)idx * c + ci] = acc[ci];
+    agg_out[idx] = agg;
+    return;
   }
   const bool covered = agg > 1e-6f;
 #pragma unroll
@@ -904,7 +933,8 @@ cudaError_t aggregate_for(const AggArgs<T>& a, int f, dim3 grid, int threads, si
 
 template <typename T>
 int launch_sites(const SiteArgs<T>& a, int psz, int smem, cudaStream_t st) {
-  const dim3 grid(a.ny * a.runs);
+  if (a.row1 == a.row0) return (int)cudaSuccess;  // no site row: nothing to write
+  const dim3 grid((a.row1 - a.row0) * a.runs);
   const int threads = 32 * a.sites;
   cudaError_t e;
 #define BNLK_SITES(P) \

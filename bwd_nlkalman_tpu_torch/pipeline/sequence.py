@@ -7,7 +7,9 @@ of the previous flt1|flt2 pair and two NL-Kalman filter passes in OPP
 color. Backward RTS smoothing then runs in reverse with a forward flow,
 the occlusion mask, a warp and one smoother pass per frame. The JAX
 package's ``lax.scan`` is a Python loop here; the warm-start gate is a
-Python branch (one host sync per frame).
+Python branch (one host sync per frame). Given a ``parallel`` mesh, the
+sequence drivers run every NL-Kalman pass row-sharded over it (flow and
+warps stay whole on the mesh's first device).
 
 The causal smoothers run here too: fsmo smooths each frame against the
 previous smoothed frame inside the forward loop, reusing its flow and
@@ -86,30 +88,46 @@ def _occlusion(flow, occ):
     return occ if isinstance(occ, torch.Tensor) else occlusion_mask(flow, occ)
 
 
+def _filter_pass(nisy, deno0, valid, basic, sigma, prms, mesh=None, **kw):
+    """``nlkalman_filter_frame``, or with a mesh its row-sharded form."""
+    if mesh is None:
+        return nlkalman_filter_frame(nisy, deno0, valid, basic, sigma, prms, **kw)
+    from ..parallel.spatial import spatial_filter_frame  # parallel imports this module
+    return spatial_filter_frame(nisy, deno0, valid, basic, sigma, prms, mesh, **kw)
+
+
+def _smooth_pass(filt1, smoo0, valid, sigma, prms, mesh=None, **kw):
+    """``nlkalman_smooth_frame``, or with a mesh its row-sharded form."""
+    if mesh is None:
+        return nlkalman_smooth_frame(filt1, smoo0, valid, sigma, prms, **kw)
+    from ..parallel.spatial import spatial_smooth_frame  # parallel imports this module
+    return spatial_smooth_frame(filt1, smoo0, valid, sigma, prms, mesh, **kw)
+
+
 def _warp_passes(noisy, prevs, flow, occ, sigma, p1, p2, engine="auto",
-                 bases=None, window_dtype="float32"):
+                 bases=None, window_dtype="float32", mesh=None):
     """The two filter passes of ``noisy`` given the backward flow and the
     previous outputs ``prevs`` (RGB: flt1, flt2 and, for fsmo, smo). All
     of them ride one warp: same flow, same validity. ``occ`` is the
     occlusion threshold or a ready mask (:func:`_occlusion`). Returns
     (f11, f21) in OPP, the warped priors after the first two (OPP) and the
-    validity."""
+    validity. With a ``mesh`` the two passes are row-sharded over it."""
     n_opp = rgb2opp(noisy)
     c = noisy.shape[-1]
     wt, v1 = warp_bicubic_nan(torch.cat([rgb2opp(p) for p in prevs], dim=-1),
                               flow, _occlusion(flow, occ), engine=engine)
     kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
-    f11 = nlkalman_filter_frame(n_opp, wt[..., :c], v1, None, sigma, p1, **kw)
-    f21 = nlkalman_filter_frame(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2, **kw)
+    f11 = _filter_pass(n_opp, wt[..., :c], v1, None, sigma, p1, mesh, **kw)
+    f21 = _filter_pass(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2, mesh, **kw)
     return f11, f21, wt[..., 2 * c:], v1
 
 
 def _filter_with_flow(noisy, flt1_prev, flt2_prev, flow, occ, sigma, p1, p2,
-                      engine="auto", bases=None, window_dtype="float32"):
+                      engine="auto", bases=None, window_dtype="float32", mesh=None):
     """Two-pass filtering given an already-computed backward flow and the
     occlusion threshold or a ready mask."""
     f11, f21, _, _ = _warp_passes(noisy, (flt1_prev, flt2_prev), flow, occ,
-                                  sigma, p1, p2, engine, bases, window_dtype)
+                                  sigma, p1, p2, engine, bases, window_dtype, mesh)
     return opp2rgb(f11), opp2rgb(f21)
 
 
@@ -129,45 +147,46 @@ def fsmo_step(noisy, flt1_prev, flt2_prev, smo_prev, flow, occ_th, sigma, p1,
 
 
 def smooth_with_flow(frame_flt2, smo_next, flow, occ, sigma, ps,
-                     engine="auto", bases=None, window_dtype="float32"):
+                     engine="auto", bases=None, window_dtype="float32", mesh=None):
     """One smoother pass of ``frame_flt2`` against ``smo_next`` warped
     along ``flow`` (RGB in and out); ``occ`` is the occlusion threshold or
-    a ready mask (:func:`_occlusion`)."""
+    a ready mask (:func:`_occlusion`). With a ``mesh`` the pass is
+    row-sharded over it."""
     w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, _occlusion(flow, occ),
                               engine=engine)
-    return opp2rgb(nlkalman_smooth_frame(rgb2opp(frame_flt2), w0, v0, sigma,
-                                         ps, engine=engine, bases=bases,
-                                         window_dtype=window_dtype))
+    return opp2rgb(_smooth_pass(rgb2opp(frame_flt2), w0, v0, sigma, ps, mesh,
+                                engine=engine, bases=bases,
+                                window_dtype=window_dtype))
 
 
 def smooth_pair(frame, nxt, sigma, ps, flow_cfg: FlowConfig, engine="auto",
-                bases=None, window_dtype="float32"):
+                bases=None, window_dtype="float32", mesh=None):
     """:func:`smooth_with_flow` along the cold flow from ``frame`` to
     ``nxt``: a step of the RTS smoother, of lsmo and of the lz3 smoother."""
     flow = flow_cfg.flow(luma(frame), luma(nxt), engine, bases)
     return smooth_with_flow(frame, nxt, flow, flow_cfg.occ_threshold, sigma,
-                            ps, engine, bases, window_dtype)
+                            ps, engine, bases, window_dtype, mesh)
 
 
 def filter_frame_pair(noisy, flt1_prev, flt2_prev, sigma, p1, p2,
                       flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                      bases=None, window_dtype="float32"):
+                      bases=None, window_dtype="float32", mesh=None):
     """Two-pass filtering of one frame given the previous outputs (RGB
     in/out); with no previous frame, the spatial-only first-frame path."""
     if flt2_prev is None:
         n_opp = rgb2opp(noisy)
         kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
-        f11 = nlkalman_filter_frame(n_opp, None, None, None, sigma, p1, **kw)
-        f21 = nlkalman_filter_frame(n_opp, None, None, f11, sigma, p2, **kw)
+        f11 = _filter_pass(n_opp, None, None, None, sigma, p1, mesh, **kw)
+        f21 = _filter_pass(n_opp, None, None, f11, sigma, p2, mesh, **kw)
         return opp2rgb(f11), opp2rgb(f21)
     flow = flow_cfg.flow(luma(noisy), luma(flt2_prev), engine, bases)
     return _filter_with_flow(noisy, flt1_prev, flt2_prev, flow,
                              flow_cfg.occ_threshold, sigma, p1, p2, engine,
-                             bases, window_dtype)
+                             bases, window_dtype, mesh)
 
 
 def filter_step_warm(frame, carry, sigma, p1, p2, flow_cfg: FlowConfig,
-                     engine="auto", bases=None, window_dtype="float32"):
+                     engine="auto", bases=None, window_dtype="float32", mesh=None):
     """One warm-started forward step (the JAX scan body, sequence.py:174-181).
 
     carry = (flt1_prev, flt2_prev, u_fs). Returns (new carry, (flt1, flt2)).
@@ -177,19 +196,20 @@ def filter_step_warm(frame, carry, sigma, p1, p2, flow_cfg: FlowConfig,
                                    bases)
     f11, f21 = _filter_with_flow(frame, flt1_prev, flt2_prev, flow,
                                  flow_cfg.occ_threshold, sigma, p1, p2,
-                                 engine, bases, window_dtype)
+                                 engine, bases, window_dtype, mesh)
     return (f11, f21, u_c), (f11, f21)
 
 
 def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
                     p2: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                    bases=None, window_dtype="float32"):
-    """Forward-filter a (T, H, W, C) sequence -> (flt1, flt2) stacks."""
+                    bases=None, window_dtype="float32", mesh=None):
+    """Forward-filter a (T, H, W, C) sequence -> (flt1, flt2) stacks; with
+    a ``mesh`` the NL-Kalman passes are row-sharded over it."""
     p1 = p1 or default_params(sigma, FilterMode.FLT1)
     p2 = p2 or default_params(sigma, FilterMode.FLT2)
     f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2, flow_cfg,
-                                 engine, bases, window_dtype)
+                                 engine, bases, window_dtype, mesh)
     flt1, flt2 = [f11], [f21]
     if flow_cfg.warm_start and noisy.shape[0] > 1:
         # frame 1 is peeled: its flow runs the cold pyramid and seeds the
@@ -198,20 +218,21 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
                                                engine, bases)
         f11, f21 = _filter_with_flow(noisy[1], f11, f21, flow1,
                                      flow_cfg.occ_threshold, sigma, p1, p2,
-                                     engine, bases, window_dtype)
+                                     engine, bases, window_dtype, mesh)
         flt1.append(f11)
         flt2.append(f21)
         carry = (f11, f21, u_fs)
         for t in range(2, noisy.shape[0]):
             carry, (f11, f21) = filter_step_warm(noisy[t], carry, sigma, p1,
                                                  p2, flow_cfg, engine, bases,
-                                                 window_dtype)
+                                                 window_dtype, mesh)
             flt1.append(f11)
             flt2.append(f21)
     else:
         for t in range(1, noisy.shape[0]):
             f11, f21 = filter_frame_pair(noisy[t], f11, f21, sigma, p1, p2,
-                                         flow_cfg, engine, bases, window_dtype)
+                                         flow_cfg, engine, bases, window_dtype,
+                                         mesh)
             flt1.append(f11)
             flt2.append(f21)
     return torch.stack(flt1), torch.stack(flt2)
@@ -219,8 +240,9 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
 
 def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
-                    bases=None, window_dtype="float32"):
-    """Backward RTS smoothing of the filtered stack (T, H, W, C) -> smo1."""
+                    bases=None, window_dtype="float32", mesh=None):
+    """Backward RTS smoothing of the filtered stack (T, H, W, C) -> smo1;
+    with a ``mesh`` the NL-Kalman passes are row-sharded over it."""
     ps = ps or default_params(sigma, FilterMode.SMO1)
     occ_th = flow_cfg.occ_threshold
     n = flt2.shape[0]
@@ -233,16 +255,16 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
         flow1, u_c = flow_cfg.flow_cold_carry(luma(flt2[-2]), luma(smo[-1]),
                                               engine, bases)
         smo[-2] = smooth_with_flow(flt2[-2], smo[-1], flow1, occ_th, sigma, ps,
-                                   engine, bases, window_dtype)
+                                   engine, bases, window_dtype, mesh)
         for t in range(n - 3, -1, -1):
             flow, u_c = flow_cfg.flow_warm(luma(flt2[t]), luma(smo[t + 1]),
                                            u_c, engine, bases)
             smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow, occ_th, sigma,
-                                      ps, engine, bases, window_dtype)
+                                      ps, engine, bases, window_dtype, mesh)
     else:
         for t in range(n - 2, -1, -1):
             smo[t] = smooth_pair(flt2[t], smo[t + 1], sigma, ps, flow_cfg,
-                                 engine, bases, window_dtype)
+                                 engine, bases, window_dtype, mesh)
     return torch.stack(smo)
 
 
@@ -327,28 +349,44 @@ def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
                      p2: NLKParams | None = None, ps: NLKParams | None = None,
                      flow_cfg: FlowConfig = FlowConfig(), smoothing: bool = True,
                      smooth_flow_cfg: FlowConfig | None = None, engine="auto",
-                     bases=None, window_dtype="float32"):
+                     bases=None, window_dtype="float32", mesh=None):
     """Two-pass forward filtering + backward smoothing: (flt1, flt2, smo1),
-    smo1 None when ``smoothing`` is False."""
+    smo1 None when ``smoothing`` is False. With a ``mesh``
+    (``parallel.make_mesh``) every NL-Kalman pass is row-sharded over its
+    'sp' axis; ``noisy`` then lies on the mesh's first device, where the
+    flow and warps run on whole frames."""
     flt1, flt2 = filter_sequence(noisy, sigma, p1, p2, flow_cfg, engine, bases,
-                                 window_dtype)
+                                 window_dtype, mesh)
     if not smoothing:
         return flt1, flt2, None
     smo1 = smooth_sequence(flt2, sigma, ps, smooth_flow_cfg or flow_cfg,
-                           engine, bases, window_dtype)
+                           engine, bases, window_dtype, mesh)
     return flt1, flt2, smo1
 
 
 def denoise_batch(noisy_batch, sigma, engine="auto", bases=None,
-                  window_dtype="float32"):
-    """Denoise a batch of clips (B, T, H, W, C), one clip after the other
-    on the batch's device, each with the default flow and parameters (JAX
-    sequence.py:454-480 without its mesh: several cards are another
-    matter). Returns the (flt1, flt2, smo1) stacks, each (B, T, H, W, C)."""
-    outs = [denoise_sequence(clip, sigma, engine=engine, bases=bases,
+                  window_dtype="float32", mesh=None):
+    """Denoise a batch of clips (B, T, H, W, C), each with the default flow
+    and parameters (JAX sequence.py:454-480). Without a mesh the clips run
+    one after the other on the batch's device. With a mesh
+    (``parallel.make_mesh``) the batch goes over its 'dp' axis: clips
+    [k B/dp, (k+1) B/dp) run, each whole, on the first device of batch row
+    k (``bases``, built for the batch's device, serve the clips there).
+    Returns the (flt1, flt2, smo1) stacks, each (B, T, H, W, C), on the
+    batch's device."""
+    if mesh is None:
+        devs = [noisy_batch.device] * noisy_batch.shape[0]
+    else:
+        dp = mesh.shape["dp"]
+        if noisy_batch.shape[0] % dp:
+            raise ValueError(f"batch {noisy_batch.shape[0]} not divisible by dp={dp}")
+        per = noisy_batch.shape[0] // dp
+        devs = [mesh.devices[j // per][0] for j in range(noisy_batch.shape[0])]
+    outs = [denoise_sequence(clip.to(d), sigma, engine=engine,
+                             bases=bases if d == noisy_batch.device else None,
                              window_dtype=window_dtype)
-            for clip in noisy_batch]
-    return tuple(torch.stack(x) for x in zip(*outs))
+            for clip, d in zip(noisy_batch, devs)]
+    return tuple(torch.stack([o.to(noisy_batch.device) for o in x]) for x in zip(*outs))
 
 
 def pipeline_bases(h: int, w: int, flow_cfgs, params) -> dict:

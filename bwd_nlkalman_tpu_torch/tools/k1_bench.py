@@ -13,6 +13,11 @@ fold kernels) from torch.profiler. With
 unpacked with ``git archive``) the turns run other, this, this, other,
 so both are timed on the same card. Every turn prints one JSON line with
 the card's name and power limit; the last line is the mean per tree.
+Each turn also takes a SHA-256 digest of each pass's output and
+per-position weights (the sum of the weights of the sites that chose a
+position, so a changed selection shows) and of the float32 DCT bands of
+the passes' inputs; with ``--against`` the last line says whether the
+two trees' digests are equal.
 
 The timing and profiler helpers (:func:`cuda_ms`, :func:`stage_ms`,
 :func:`device_events`, :func:`kernel_ms`, :func:`busy_ms`), the inputs
@@ -259,7 +264,7 @@ def worker(root: str) -> dict:
     import torch
     from bwd_nlkalman_tpu_torch import _build
     from bwd_nlkalman_tpu_torch.core.engine import nlk_bases
-    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda, pass_with_weights
     from bwd_nlkalman_tpu_torch.ops.bases import make_bases
 
     if not torch.cuda.is_available():
@@ -272,9 +277,61 @@ def worker(root: str) -> dict:
     res = {}
     for name, args in pass_args(cur, prev, valid, basic, kb).items():
         fn = lambda: dense_pass_cuda(*args)  # noqa: E731
-        res[name] = {"ms": cuda_ms(fn, REPS), "stages_ms": stage_ms(fn, 3)}
+        res[name] = {"ms": cuda_ms(fn, REPS), "stages_ms": stage_ms(fn, 3),
+                     "digest": digest(*pass_with_weights(*args))}
+    res["bands"] = {"digest": digest(*(band_f32(x, 8, kb["dct_8"])
+                                       for x in (cur, prev, basic)))}
     return {"root": os.path.relpath(root, ROOT) if root != ROOT else ".",
             "card": card(), "torch": torch.__version__, "passes": res}
+
+
+def digest(*tensors) -> str:
+    """SHA-256 of the tensors' bytes, in turn."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def band_f32(img, psz, dmat):
+    """K1's float32 DCT band of every psz x psz patch of ``img``, (H-psz+1,
+    W-psz+1, C psz^2): its DCT stage, called through the C entry as the
+    wrapper calls it; ``dmat`` the (psz, psz) DCT matrix on the card."""
+    import ctypes
+
+    import torch
+    from bwd_nlkalman_tpu_torch._build import call, stream_ptr
+
+    h, w, c = img.shape
+    img = img.contiguous()
+    out = torch.empty((h - psz + 1, w - psz + 1, c * psz * psz), dtype=torch.float32,
+                      device=img.device)
+    call("bnlk_nlk_dct", img.data_ptr(), None, dmat.data_ptr(), out.data_ptr(),
+         None, h, w, c, psz, 0, ctypes.c_void_p(stream_ptr(img.device)))
+    return out
+
+
+@contextlib.contextmanager
+def k1_bands():
+    """Within the block the plain NLK pass takes K1's float32 DCT bands
+    (:func:`band_f32`) in place of its own: where K1's DCT keeps fused
+    multiply-adds (psz 8, 1-3 channels, float32) its bands differ from the
+    plain ones in the last bits, so that, with :func:`k1_order`, the plain
+    pass then selects what K1 selects at a tie. For float32 bands only
+    (K1's bf16 bands are the plain ones rounded)."""
+    from bwd_nlkalman_tpu_torch.core import engine
+    from bwd_nlkalman_tpu_torch.ops.bases import basis
+    from bwd_nlkalman_tpu_torch.ops.dct import _ortho_basis_np
+
+    plain = engine.dct_image_all_patches
+    engine.dct_image_all_patches = lambda img, psz: band_f32(
+        img, psz, basis(None, ("dct", psz), _ortho_basis_np, img.device))
+    try:
+        yield
+    finally:
+        engine.dct_image_all_patches = plain
 
 
 def main(argv=None) -> int:
@@ -301,9 +358,13 @@ def main(argv=None) -> int:
     for run in runs:
         m = mean.setdefault(run["root"], {})
         for name, p in run["passes"].items():
-            m.setdefault(name, []).append(p["ms"])
+            if "ms" in p:
+                m.setdefault(name, []).append(p["ms"])
+    digests = {json.dumps({k: p["digest"] for k, p in run["passes"].items()})
+               for run in runs}
     print(json.dumps({"card": runs[0]["card"], "mean_ms": {
-        root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()}}))
+        root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()},
+        "digests_equal": len(digests) == 1}))
     return 0
 
 

@@ -94,10 +94,26 @@ arguments, one GPU). Phases, each reported on its own line:
    one without fixtures; every K1, K2 and K4 count equal to its formula
    and K3 none; ``view_results`` on the table the searches wrote (each row
    one trial that ran) and ``plambda`` (``-c`` on a trial's MSE, and on
-   two 400x400 PNGs).
+   two 400x400 PNGs);
+14. the row-sharded passes (``bwd_nlkalman_tpu_torch.parallel``) on one
+   card: K1 with ``site_rows`` / ``qy_bounds`` / ``return_accum`` on every
+   shard of sp=2 and sp=4 at 272x480, gray and RGB, f32 and bf16 bands,
+   flt2 and smo1, against the plain pass at K1's bars (elementwise where
+   the plain pass takes K1's bands; by share and mean error with its own),
+   and the folded shards against K1's whole-frame pass (rtol 1e-4, atol
+   2e-3); the
+   sharded 1080p gray flt1 and smo1 passes at sp 1, 2 and 3 on
+   ``[cuda:0] * sp``: ms per pass beside the whole-frame pass, the
+   difference from it, K1 launches = sp; ``denoise_sequence_sharded`` on
+   slice 1's clip and flow at sp 2 and 3: frames/s, flt2 and smo1 within
+   0.05 dB of slice 1, K1 = 11 sp, K2 and K4 as in slice 1, profiled
+   (and across cards where more than one is visible; else it says that
+   scaling was not measured); ``denoise_batch`` over dp=2 against the
+   unsharded batch; ``dryrun_multichip(4)``.
 
 Every phase prints its seconds. Every launch counter is set to 0 just
-before each of the paths 4-7 and 9-13 and read just after. The second-to-last line is a JSON object with one entry
+before each of the paths 4-7, 9-13 and 14's sharded sequence and read
+just after. The second-to-last line is a JSON object with one entry
 per kernel (K1's with a ``variants`` list: each widened case held, with
 its max abs error); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
@@ -105,6 +121,7 @@ failure raises and the script exits non-zero without that line.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 import json
@@ -223,12 +240,15 @@ def bound(flops: float, nbytes: float, peak: float = F32_FLOPS_S):
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def k1_work(cur, prev_valid, p, mode, has_prev, has_basic, window_dtype="float32"):
+def k1_work(cur, prev_valid, p, mode, has_prev, has_basic, window_dtype="float32",
+            site_rows=None, qy_bounds=None):
     """(FLOPs, bytes, band bytes) of one NLK pass on these inputs: the
     separable psz x psz DCT of each band (4 psz^3 FLOPs a patch), the
     distances of every site's candidates (sites every psz/2; within the
     temporal radius where the site's previous patch is valid, as the pass
-    restricts them), the separable inverse DCT and the window fold. The
+    restricts them; a shard's own sites with candidates in its patch-row
+    bounds, ``site_rows`` and ``qy_bounds`` as the pass takes them), the
+    separable inverse DCT and the window fold. The
     group statistics and gains, which depend on the selection, are not
     counted, so this is a lower bound of the work. The bytes are the
     function's own (the frames read once, the output written once); the
@@ -237,22 +257,24 @@ def k1_work(cur, prev_valid, p, mode, has_prev, has_basic, window_dtype="float32
     memory."""
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import patch_validity
-    from bwd_nlkalman_tpu_torch.core.engine_cuda import pass_radius
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import pass_radius, site_range
 
     h, w, c = cur.shape
     psz, step = p.patch_sz, p.patch_sz // 2
     hh, ww, f = h - psz + 1, w - psz + 1, psz * psz * c
     rad = pass_radius(p, mode)
-    py = torch.arange(0, hh, step, device=cur.device)
+    r0, r1, qlo, qhi = site_range(h, psz, site_rows, qy_bounds)
+    py = step * torch.arange(r0, r1, device=cur.device)
     px = torch.arange(0, ww, step, device=cur.device)
 
     def cands(r):
-        span = lambda q, n: torch.clamp(q, max=r) + torch.clamp(n - 1 - q, max=r) + 1
-        return span(py, hh)[:, None] * span(px, ww)[None, :]
+        span = lambda q, lo, hi: (torch.clamp(q - lo, max=r) + torch.clamp(hi - 1 - q, max=r)
+                                  + 1)
+        return span(py, qlo, qhi)[:, None] * span(px, 0, ww)[None, :]
 
     n_cand = cands(rad)
     if mode == "filter" and has_prev:
-        n_cand = torch.where(patch_validity(prev_valid, psz)[::step, ::step],
+        n_cand = torch.where(patch_validity(prev_valid, psz)[step * r0:step * r1:step, ::step],
                              cands(p.search_sz_t), n_cand)
     n_bands = 1 + int(has_basic) + int(has_prev)
     flops = (n_bands + 1) * hh * ww * c * 4 * psz ** 3 + int(n_cand.sum()) * f * 3 \
@@ -1619,6 +1641,242 @@ def table_params(r):
             r.p2.npatches_tagg, r.p2.beta_t, r.ps.npatches_t, r.ps.beta_t]
 
 
+SHARD_MID = (272, 480)  # 136- and 68-row blocks at sp 2 and 4
+# K1's shard passes against the plain pass with its own bands, by the
+# shares of the sums (or of the whole frame's pixels) beyond K1's bar and
+# their mean abs error: selection ties there move a group of the RGB
+# float32 flt2 pass
+K1_SHARD_SHARE = 1e-3   # 3.2e-4 at most measured
+K1_SHARD_MEAN = 2e-4    # 8.6e-5 at most measured
+
+
+def phase_sharded(smi, slice1):
+    """14. The row-sharded passes on one card: K1's sharded arguments against
+    the plain pass on every shard, the sharded 1080p passes against K1's
+    whole-frame pass and timed, the sharded sequence against slice 1, the
+    batch over dp, and the multichip dry run."""
+    import torch
+    from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
+    from bwd_nlkalman_tpu_torch.ops.bases import make_bases
+    from bwd_nlkalman_tpu_torch.parallel import (denoise_sequence_sharded, dryrun_multichip,
+                                                 make_mesh, spatial_filter_frame,
+                                                 spatial_smooth_frame)
+    from bwd_nlkalman_tpu_torch.parallel.spatial import (_halo_extend, _halo_fold,
+                                                         shard_bounds, shard_halo)
+    from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, denoise_batch
+    from bwd_nlkalman_tpu_torch.pipeline.sequence import pipeline_bases
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import (cuda_ms, k1_bands, k1_order, nlk_inputs,
+                                                       pass_args)
+
+    # (a) K1 with site_rows / qy_bounds / return_accum on every shard's
+    # halo-extended block against the plain pass with the same arguments,
+    # the sums scaled by the largest weight (so in pixel units) and the
+    # weights by it, at K1's bar (rtol 1e-3; atol 5e-2 on the sums,
+    # 5e-2/255 on the weights). The plain pass sums its distances in K1's
+    # order and, for float32 bands, takes K1's bands (k1_order, k1_bands).
+    # Against the plain pass with its own bands, the psz-8 RGB float32 pass
+    # (whose K1 bands keep fused multiply-adds) has selection ties at this
+    # size that move a group, so that comparison is held by share and mean
+    # (K1_SHARD_SHARE, K1_SHARD_MEAN), for each shard's sums and for the
+    # whole frame. Then the folded shards against K1's whole-frame pass at
+    # the JAX package's sharded bar (rtol 1e-4, atol 2e-3,
+    # tests/test_parallel.py): the same kernel on the same bands, so only
+    # the order of the fold's sums differs
+    def plain(args, wdt, own_bands=False, **kw):
+        with k1_order(), (k1_bands() if wdt == "float32" and not own_bands
+                          else contextlib.nullcontext()):
+            return dense_pass_v2(*args, window_dtype=wdt, **kw)
+
+    def past(got, want):
+        """(share of ``got`` past K1's bar around ``want``, max abs error,
+        mean abs error)."""
+        d = (got - want).abs()
+        return (float((d > 5e-2 + 1e-3 * want.abs()).sum()) / d.numel(), float(d.max()),
+                float(d.mean()))
+
+    rng = np.random.default_rng(14)
+    kb = make_bases(nlk_bases(8), "cuda")
+    h, w = SHARD_MID
+    worst, worst_fold, worst_own = 0.0, 0.0, [0.0, 0.0]
+    for ch in (1, 3):
+        cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                   for a in nlk_inputs(rng, h, w, ch))
+        for name, args in pass_args(cur, prev, valid, basic, kb).items():
+            if name not in ("flt2", "smo1"):
+                continue
+            p, mode, has_prev, has_basic = args[5:9]
+            halo = shard_halo(p, mode)
+            for wdt, sp in itertools.product(("float32", "bfloat16"), (2, 4)):
+                block = h // sp
+                ext = [_halo_extend([x[i * block:(i + 1) * block] for i in range(sp)], halo)
+                       for x in args[:4]]
+                outs, aggs, errs, own = [], [], [], []
+                for i in range(sp):
+                    site_rows, qy = shard_bounds(i, block, halo, h, p.patch_sz)
+                    sargs = tuple(e[i].contiguous() for e in ext) + args[4:]
+                    kw = dict(site_rows=site_rows, qy_bounds=qy, return_accum=True)
+                    out, agg = dense_pass_cuda(*sargs, window_dtype=wdt, **kw)
+                    want_out, want_agg = plain(sargs, wdt, **kw)
+                    sc = float(want_agg.max())
+                    check(sc > 0.0, f"K1 shard {i}/{sp}: no weight at all")
+                    own.append(past(out / sc, plain(sargs, wdt, True, **kw)[0] / sc))
+                    errs.append((max_err(out / sc, want_out / sc),
+                                 max_err(agg / sc, want_agg / sc)))
+                    tag = f"K1 {name} ch={ch} {wdt} shard {i}/{sp}"
+                    assert_close(f"{tag} out_acc", out / sc, want_out / sc, rtol=1e-3,
+                                 atol=5e-2)
+                    assert_close(f"{tag} agg", agg / sc, want_agg / sc, rtol=1e-3,
+                                 atol=5e-2 / 255)
+                    outs.append(out)
+                    aggs.append(agg)
+                outs, aggs = _halo_fold(outs, halo), _halo_fold(aggs, halo)
+                got = torch.cat([torch.where((a > 1e-6)[..., None],
+                                             o / torch.clamp(a, min=1e-6)[..., None],
+                                             args[0][i * block:(i + 1) * block])
+                                 for i, (o, a) in enumerate(zip(outs, aggs))])
+                whole = dense_pass_cuda(*args, window_dtype=wdt)
+                own.append(past(whole, plain(args, wdt, True)))
+                fold_err = max_err(got, whole)
+                worst = max([worst] + [e for pair in errs for e in pair])
+                worst_fold = max(worst_fold, fold_err)
+                log(f"[14 K1 shards] {name} ch={ch} {wdt} {h}x{w} sp={sp} (block {block}, "
+                    f"halo {halo}): each shard's out_acc / agg against the plain pass, max "
+                    f"abs err scaled by the largest weight " + ", ".join(
+                        f"{a:.2e} / {b:.2e}" for a, b in errs) + " (rtol 1e-3, atol 5e-2 / "
+                    f"5e-2/255); the whole frame's K1 against the plain pass "
+                    f"{max_err(whole, plain(args, wdt)):.3e}; against the plain pass with its "
+                    f"own bands, share past the bar / max / mean of each shard's out_acc "
+                    + ", ".join(f"{a:.1e} / {b:.2e} / {c:.2e}" for a, b, c in own[:-1])
+                    + ", the whole frame's %.1e / %.2e / %.2e" % own[-1]
+                    + f" (share <= {K1_SHARD_SHARE:g}, mean <= {K1_SHARD_MEAN:g}); folded "
+                    f"shards against K1's whole pass {fold_err:.3e} (rtol 1e-4, atol 2e-3)")
+                worst_own = [max(a, b) for a, b in zip(worst_own, (max(o[0] for o in own),
+                                                                   max(o[2] for o in own)))]
+                check(worst_own[0] <= K1_SHARD_SHARE and worst_own[1] <= K1_SHARD_MEAN,
+                      f"K1 {name} ch={ch} {wdt} sp={sp} off the plain pass with its own bands")
+                assert_close(f"K1 {name} ch={ch} {wdt} sp={sp} folded", got, whole,
+                             rtol=1e-4, atol=2e-3)
+    log(f"[14 K1 shards] largest error against the plain pass {worst:.3e}, of the folded "
+        f"shards against K1's whole pass {worst_fold:.3e}; against the plain pass with its "
+        f"own bands, largest share past the bar {worst_own[0]:.2e}, largest mean error "
+        f"{worst_own[1]:.2e}")
+
+    # (b) 1080p gray at the production parameters: the sharded filter
+    # (flt1 with a previous frame and its validity) and smoother passes on
+    # [cuda:0] * sp, against and timed beside K1's whole-frame pass
+    cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                               for a in nlk_inputs(np.random.default_rng(0), *FULL, 1))
+    p1, ps = default_params(SIGMA, FilterMode.FLT1), default_params(SIGMA, FilterMode.SMO1)
+    counters = reset_counters()
+    runs = {"flt1": (lambda m: spatial_filter_frame(cur, prev, valid, None, SIGMA, p1, m,
+                                                    bases=kb),
+                     lambda: dense_pass_cuda(cur, prev, valid, cur, SIGMA, p1, "filter",
+                                             True, False, kb)),
+            "smo1": (lambda m: spatial_smooth_frame(cur, prev, valid, SIGMA, ps, m, bases=kb),
+                     lambda: dense_pass_cuda(cur, prev, valid, cur, SIGMA, ps, "smooth",
+                                             True, False, kb))}
+    for name, (sharded, whole) in runs.items():
+        want = whole()
+        w_ms = cuda_ms(whole, 5)
+        p = p1 if name == "flt1" else ps
+        mode = "filter" if name == "flt1" else "smooth"
+        for sp in (1, 2, 3):
+            mesh = make_mesh(1, sp, ["cuda:0"] * sp)
+            counters["K1"].reset()
+            got = sharded(mesh)
+            torch.cuda.synchronize()
+            n_k1 = counters["K1"].count
+            err = max_err(got, want)
+            s_ms = cuda_ms(lambda: sharded(mesh), 5)
+            # the bound of each shard's K1 launch: its own sites over its
+            # halo-extended block (the DCT and the fold cover the block)
+            halo, block = shard_halo(p, mode), FULL[0] // sp
+            ext = [_halo_extend([x[i * block:(i + 1) * block] for i in range(sp)], halo)
+                   for x in (cur, valid)]
+            sb = [shard_bounds(i, block, halo, FULL[0], p.patch_sz) for i in range(sp)]
+            work = [k1_work(ext[0][i], ext[1][i], p, mode, True, False,
+                            site_rows=sb[i][0], qy_bounds=sb[i][1]) for i in range(sp)]
+            b_ms = [bound(fl, nb)[0] for fl, nb, _ in work]
+            bb_ms = [bound(fl, nbb)[0] for fl, _, nbb in work]
+            log(f"[14 sharded 1080p] {name} sp={sp} on cuda:0 x {sp}: {s_ms:.3f} ms per "
+                f"sharded pass between events (whole-frame K1 pass {w_ms:.3f} ms), max abs "
+                f"diff from it {err:.3e} (rtol 1e-4, atol 2e-3), K1 launches {n_k1} "
+                f"(= sp); bound of each shard's launch " + ", ".join(
+                    f"{b:.3f}" for b in b_ms) + f" ms ({bound(*work[0][:2])[1]}), with the "
+                f"bands in device memory " + ", ".join(f"{b:.3f}" for b in bb_ms)
+                + f" ms, {sum(b_ms):.3f} / {sum(bb_ms):.3f} ms a pass ({smi})")
+            check(n_k1 == sp, f"sharded {name} sp={sp}: K1 ran {n_k1} times")
+            assert_close(f"sharded {name} sp={sp}", got, want, rtol=1e-4, atol=2e-3)
+        del want, got
+    del cur, prev, valid, basic
+    torch.cuda.empty_cache()
+
+    # (c) the sharded sequence on slice 1's clip and flow configuration
+    t, (h, w) = 4, FULL
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+    cfg = FlowConfig(warm_start=True, warm_nwarps=3)
+    # the constants built once, as slice 1's module holds them
+    seq_bases = make_bases(pipeline_bases(h, w, (cfg,), [default_params(SIGMA, m) for m in
+                                                         FilterMode]), "cuda")
+    n_cards = torch.cuda.device_count()
+    layouts = [(sp, ["cuda:0"] * sp) for sp in (2, 3)]
+    if n_cards > 1:
+        layouts += [(sp, [f"cuda:{i}" for i in range(sp)]) for sp in (2, 3) if sp <= n_cards]
+    for sp, devs in layouts:
+        mesh = make_mesh(1, sp, devs)
+        where = "cuda:0 x %d" % sp if len(set(devs)) == 1 else f"{sp} cards"
+        run = lambda: denoise_sequence_sharded(noisy, SIGMA, mesh, flow_cfg=cfg,  # noqa: E731
+                                               bases=seq_bases)
+        run()                   # warm-up: the shards' constants, allocator
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        PLAIN_PASSES.reset()
+        t0 = time.perf_counter()
+        flt1, flt2, smo1 = run()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, f"14 sharded sequence sp={sp}", ("K1", "K2", "K4"))
+        for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
+            check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
+                  f"sharded {name} is not finite frames of the clip's shape")
+        p_2, p_s = psnr(clean, flt2), psnr(clean, smo1)
+        d2, ds = p_2 - slice1["psnr"][0], p_s - slice1["psnr"][1]
+        log(f"[14 sharded sequence] 1080p gray T={t} warm flow, sp={sp} on {where}: PSNR "
+            f"flt2 {p_2:.4f} smo1 {p_s:.4f} dB (slice 1 {slice1['psnr'][0]:.4f} / "
+            f"{slice1['psnr'][1]:.4f}; d {d2:+.4f} / {ds:+.4f}, |d| <= 0.05); "
+            f"{secs:.3f} s, {t / secs:.3f} frames/s (slice 1 {slice1['fps']:.3f}) ({smi})")
+        check(abs(d2) <= 0.05 and abs(ds) <= 0.05, "sharded sequence PSNR off slice 1's")
+        want = {"K1": (3 * t - 1) * sp, "K2": slice1["launches"]["K2"],
+                "K4": slice1["launches"]["K4"]}
+        check(all(launches[k] == v for k, v in want.items()) and PLAIN_PASSES.count == 0,
+              f"sharded sequence launches {launches}, expected {want} and no plain pass")
+        profile_slice(run, f"14 sharded sequence sp={sp} profile", smi)
+        del flt1, flt2, smo1
+        torch.cuda.empty_cache()
+    if n_cards < 2:
+        log(f"[14 sharded sequence] {n_cards} card{'s' if n_cards != 1 else ''} visible: "
+            "scaling across cards not measured")
+
+    # (d) the batch over dp against the unsharded batch, and the dry run
+    clips = torch.from_numpy(np.stack([make_clip(128, 160, 3, SIGMA, seed=s)[1]
+                                       for s in (3, 4)])).cuda()
+    got = denoise_batch(clips, SIGMA, mesh=make_mesh(2, 1, ["cuda:0"] * 2))
+    want = denoise_batch(clips, SIGMA)
+    err = max(max_err(g, r) for g, r in zip(got, want))
+    log(f"[14 denoise_batch] 2 clips of 3 x 128x160 over dp=2 (cuda:0 x 2): max abs diff "
+        f"from the unsharded batch {err:.3e} (<= 1e-4)")
+    check(err <= 1e-4, "denoise_batch over dp disagrees with the unsharded batch")
+    t0 = time.perf_counter()
+    line = dryrun_multichip(4)
+    log(f"[14 dryrun] {time.perf_counter() - t0:.1f} s ({smi})")
+    check(line.startswith("dryrun_multichip OK") and "k1" in line, "dryrun_multichip failed")
+
+
 # the kernels of each, by the start of their names as torch.profiler shows them
 KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
                 "K2": ("level_kernel",), "K3": ("stage_kernel",), "K4": ("warp_tile_kernel",)}
@@ -1669,6 +1927,7 @@ def main() -> int:
     timed("11 multiscale", phase_multiscale, smi)
     timed("12 per-frame commands", phase_cli_frame, smi)
     timed("13 search", phase_search, smi)
+    timed("14 sharded", phase_sharded, smi, slice1)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)

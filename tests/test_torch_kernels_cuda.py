@@ -15,7 +15,7 @@ import torch
 
 from bwd_nlkalman_tpu_torch.core import engine_cuda
 from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2
-from bwd_nlkalman_tpu_torch.core.engine_cuda import PATCH_SIZES, dense_pass_cuda
+from bwd_nlkalman_tpu_torch.core.engine_cuda import PATCH_SIZES, dense_pass_cuda, pass_radius
 from bwd_nlkalman_tpu_torch.flow import tvl1_block_cuda as k3
 from bwd_nlkalman_tpu_torch.flow import tvl1_cuda as k2
 from bwd_nlkalman_tpu_torch.flow import tvl1_fused, tvl1_tiled
@@ -334,3 +334,84 @@ def test_nlk_kernel_at_search_extremes(dev, name, mode, has_prev, has_basic, prm
     diff = (got - want).abs()
     assert float((diff > 5e-2 + 1e-3 * want.abs()).float().mean()) <= 5e-5
     assert float(diff.mean()) <= 2e-4
+
+
+SHARD_PASSES = {"flt prev basic": ("filter", FilterMode.FLT2, True, True),
+                "flt first frame": ("filter", FilterMode.FLT1, False, False),
+                "smo": ("smooth", FilterMode.SMO1, True, False)}
+
+
+@pytest.mark.parametrize("kind", list(SHARD_PASSES))
+@pytest.mark.parametrize("c", [1, 3])
+@pytest.mark.parametrize("psz", [4, 8])
+@pytest.mark.parametrize("window_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("sp", [2, 4])
+def test_nlk_kernel_shard_arguments_match_plain(dev, sp, window_dtype, psz, c, kind):
+    """K1 with ``site_rows``, ``qy_bounds`` and ``return_accum`` on every
+    shard's halo-extended block of a 96x80 frame, against the plain pass
+    with the same arguments: the sums and weights, scaled by the largest
+    weight, at K1's bar (rtol 1e-3; atol 5e-2 on the sums, in pixel
+    units, 5e-2/255 on the weights); rows no owned site reaches hold
+    nothing; and the folded, normalised shards against K1's whole-frame
+    pass at the JAX package's sharded bar (rtol 1e-4, atol 2e-3)."""
+    from bwd_nlkalman_tpu_torch.parallel.spatial import (_halo_extend, _halo_fold,
+                                                         shard_bounds, shard_halo)
+
+    mode, fm, has_prev, has_basic = SHARD_PASSES[kind]
+    prms = dataclasses.replace(default_params(20.0, fm), patch_sz=psz, search_sz_x=6,
+                               search_sz_t=3)
+    h, w = 96, 80
+    rng = np.random.default_rng(psz + c)
+    cur, prev, valid, basic = (_t(a, dev) for a in nlk_inputs(rng, h, w, c))
+    if not has_prev:
+        prev, valid = torch.zeros_like(cur), torch.zeros_like(valid)
+    if not has_basic:
+        basic = cur
+    halo, block = shard_halo(prms, mode), h // sp
+    ext = [_halo_extend([x[i * block:(i + 1) * block] for i in range(sp)], halo)
+           for x in (cur, prev, valid, basic)]
+    outs, aggs = [], []
+    for i in range(sp):
+        site_rows, qy = shard_bounds(i, block, halo, h, psz)
+        args = (*(e[i].contiguous() for e in ext), 20.0, prms, mode, has_prev, has_basic)
+        kw = dict(window_dtype=window_dtype, site_rows=site_rows, qy_bounds=qy,
+                  return_accum=True)
+        out, agg = dense_pass_cuda(*args, **kw)
+        want_out, want_agg = dense_pass_v2(*args, **kw)
+        s = float(want_agg.max())
+        assert s > 0.0
+        torch.testing.assert_close(out / s, want_out / s, rtol=1e-3, atol=5e-2)
+        torch.testing.assert_close(agg / s, want_agg / s, rtol=1e-3, atol=5e-2 / 255)
+        assert float(agg[:halo - pass_radius(prms, mode)].abs().max()) == 0.0
+        outs.append(out)
+        aggs.append(agg)
+    outs, aggs = _halo_fold(outs, halo), _halo_fold(aggs, halo)
+    got = torch.cat([torch.where((a > 1e-6)[..., None], o / torch.clamp(a, min=1e-6)[..., None],
+                                 cur[i * block:(i + 1) * block])
+                     for i, (o, a) in enumerate(zip(outs, aggs))])
+    whole = dense_pass_cuda(cur, prev, valid, basic, 20.0, prms, mode, has_prev, has_basic,
+                            window_dtype=window_dtype)
+    torch.testing.assert_close(got, whole, rtol=1e-4, atol=2e-3)
+
+
+def test_sharded_frame_passes_on_one_card(dev):
+    """``spatial_filter_frame`` / ``spatial_smooth_frame`` on ``[cuda:0] * 3``
+    launch K1 once a shard and agree with the whole-frame K1 pass."""
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import LAUNCHES
+    from bwd_nlkalman_tpu_torch.core.nlkalman import (nlkalman_filter_frame,
+                                                     nlkalman_smooth_frame)
+    from bwd_nlkalman_tpu_torch.parallel import (make_mesh, spatial_filter_frame,
+                                                 spatial_smooth_frame)
+
+    rng = np.random.default_rng(9)
+    cur, prev, valid, basic = (_t(a, dev) for a in nlk_inputs(rng, 120, 96, 1))
+    mesh = make_mesh(1, 3, ["cuda:0"] * 3)
+    p1, ps = default_params(20.0, FilterMode.FLT1), default_params(20.0, FilterMode.SMO1)
+    LAUNCHES.reset()
+    got = spatial_filter_frame(cur, prev, valid, None, 20.0, p1, mesh)
+    assert LAUNCHES.count == 3
+    torch.testing.assert_close(got, nlkalman_filter_frame(cur, prev, valid, None, 20.0, p1),
+                               rtol=1e-4, atol=2e-3)
+    got = spatial_smooth_frame(cur, prev, valid, 20.0, ps, mesh)
+    torch.testing.assert_close(got, nlkalman_smooth_frame(cur, prev, valid, 20.0, ps),
+                               rtol=1e-4, atol=2e-3)
