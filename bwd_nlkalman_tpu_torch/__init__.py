@@ -16,9 +16,12 @@ version runs instead. Entry points (``NLKalmanDenoiser``,
 ``StreamingDenoiser``, ``MultiscaleDenoiser``, ``models.get_model``, the
 CLIs under ``cli/``) run on the card unless asked for the CPU.
 ``parallel`` shards the NLK passes' rows over a mesh of devices with halo
-exchange (K1 on each shard's own sites), runs the sharded sequence and
-spreads a batch of clips over the mesh's 'dp' axis. This package imports
-neither JAX nor the JAX package.
+exchange (K1 on each shard's own sites), and the flow, occlusion and warps
+too (K2, K3 and K4 in their shard forms), runs the sharded sequence and
+spreads a batch of clips over the mesh's 'dp' axis. ``native`` is the C++
+io library (PNG, TIFF, JPEG, PFM, FLO and a threaded frame loader),
+built at first use with g++. This package imports neither JAX nor the
+JAX package.
 """
 
 __version__ = "0.1.0"

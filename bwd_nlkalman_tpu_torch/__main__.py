@@ -3,14 +3,30 @@
 Prints the package version, torch and its CUDA build, the card (or that
 there is none), whether ``build/torch_kernels/`` holds built kernels,
 whether K1 takes the default passes at common frame sizes with float32
-and bfloat16 bands (``core.nlkalman.k1_supported``), and the
-command-line tools: a quick check of a new install. Builds and launches
-nothing.
+and bfloat16 bands (``core.nlkalman.k1_supported``), the native io
+library (built or not, and its codecs: those compiled in, or those whose
+headers the compiler finds), and the command-line tools: a quick check of
+a new install. Builds and launches nothing.
 """
 
 from __future__ import annotations
 
 import sys
+
+
+def native_io_line() -> str:
+    """The report's native io line (JAX __main__.py:38-44)."""
+    import shutil
+
+    from . import native
+
+    if shutil.which("g++") is None and not native.built():
+        return "native IO: not available (no g++ to build it); the pure-numpy codecs serve"
+    if native.built():
+        return (f"native IO: built at {native.lib_path()}; codecs compiled in: "
+                + ", ".join(native.codecs() + ("pfm", "flo")))
+    return ("native IO: builds at first use (g++) into build/native_io/; headers found: "
+            + (", ".join(native.found_codecs()) or "none") + " (pfm and flo need none)")
 
 
 def main(argv=None) -> int:
@@ -40,6 +56,7 @@ def main(argv=None) -> int:
                    if (r := k1_refusal(h, w, ch, default_params(20.0, fm), mode, wdt))]
             verdict = "K1 takes every default pass" if not why else "plain pass: " + "; ".join(why)
             print(f"  {h}x{w}x{ch} {wdt} bands: {verdict}")
+    print(native_io_line())
     print("CLI tools: " + ", ".join(c.replace("_", "-") for c in COMMANDS)
           + "  (python -m bwd_nlkalman_tpu_torch.cli.<name> --help)")
     return 0

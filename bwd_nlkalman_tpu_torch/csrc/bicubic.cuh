@@ -1,6 +1,7 @@
 // Catmull-Rom bicubic sampling: the cubic and the footprint test, shared
 // by K2's sampler (bnlk_bicubic_at, below; the TV-L1 level kernel's warp
-// stage) and K4's (warp_tap.cuh).
+// stage) and K4's (warp_tap.cuh); and K2's warp-stage constants, shared by
+// K2's level kernel and K4's TV-L1 entry in K2's form.
 //
 // Semantics of the JAX package's warps (bwd_nlkalman_tpu/ops/warp.py):
 // at absolute coordinates (cx, cy) the tap base is floor(c) - 1, the
@@ -53,4 +54,20 @@ __device__ __forceinline__ bool bnlk_bicubic_at(const float* __restrict__ im,
     out[ch] = bnlk_cubic(cols[0], cols[1], cols[2], cols[3], fx);
   }
   return true;
+}
+
+// K2's constants of a warp stage at one pixel (bwd_nlkalman_tpu/flow/
+// tvl1_fused.py:200-209): from the warped (I1, I1x, I1y) = (i1w, i1wx,
+// i1wy), the flow (u1, u2) and i0, writes i1wx, i1wy, nig = -1/|grad|^2
+// (0 where |grad|^2 < 1e-10) and rho_c = i1w - i1wx u1 - i1wy u2 - i0 to
+// out[0], out[n], out[2n], out[3n]. One function, so that K2's level
+// kernel and a shard's constants (K4, warp.cu) are rounded alike.
+__device__ __forceinline__ void bnlk_k2_consts(float i1w, float i1wx, float i1wy,
+                                               float u1, float u2, float i0,
+                                               float* out, size_t n) {
+  const float grad = i1wx * i1wx + i1wy * i1wy;
+  out[0] = i1wx;
+  out[n] = i1wy;
+  out[2 * n] = grad < 1e-10f ? 0.0f : -1.0f / fmaxf(grad, 1e-10f);
+  out[3 * n] = i1w - i1wx * u1 - i1wy * u2 - i0;
 }

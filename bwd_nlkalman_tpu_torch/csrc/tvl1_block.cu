@@ -27,6 +27,11 @@
 // planes = i1wx, i1wy, grad, rho_c (the warp and the constants stay
 // outside the kernel, as on the TPU, :269-285). What bounds it on the card,
 // and what the design does about it: tvl1_tile.cuh.
+//
+// The shard form (bnlk_tvl1_stage_round, parallel/flow.py) runs one block
+// of k_iters iterations under K3Rule on a shard's row block with its halo
+// (tvl1_tile.cuh, round_kernel), the stop-or-go taken by the launch itself
+// from every shard's sum of the round before.
 #include <cuda_runtime.h>
 
 #include "tvl1_tile.cuh"
@@ -83,11 +88,7 @@ extern "C" int bnlk_tvl1_stage(void* state, const void* consts, void* tmp,
                                void* stream) {
   if (k_iters < 1 || h < 2 || w < 2) return (int)cudaErrorInvalidValue;
   StageArgs a;
-  a.L.h = h;
-  a.L.w = w;
-  a.L.rows = rows;
-  a.L.tiles_y = tiles_y;
-  a.L.tiles_x = tiles_x;
+  tile_block(a.L, h, w, rows, tiles_y, tiles_x, h, 0, 0, h);
   a.L.l_t = (float)(lambda * theta);
   a.L.theta = (float)theta;
   a.L.taut = (float)(tau / theta);
@@ -105,4 +106,21 @@ extern "C" int bnlk_tvl1_stage(void* state, const void* consts, void* tmp,
   cudaStream_t st = (cudaStream_t)stream;
   if (kt != kTileDepth || !tile_plan_ok<kTileDepth>(a.L)) return (int)cudaErrorInvalidValue;
   return launch_tiles(stage_kernel<kTileDepth>, &a, a.L, st);
+}
+
+// One block of k iterations under K3Rule on a row block (the shard form):
+// the arguments of bnlk_tvl1_level_round, with consts (i1wx, i1wy, grad,
+// rho_c) and blocks (or null) a device int that receives += 1 when the
+// round runs.
+extern "C" int bnlk_tvl1_stage_round(void* state, const void* consts, void* tmp,
+                                     void* partials, void* sums, void* flag, void* blocks,
+                                     int h, int w, int hb, int y0, int own0,
+                                     int own1, int k, int slot, int n_sums, int round,
+                                     double epsilon, double tau, double lambda,
+                                     double theta, int kt, int rows, int tiles_y,
+                                     int tiles_x, void* stream) {
+  return launch_round<K3Rule>(state, consts, tmp, partials, sums, flag, blocks, 1, h, w, hb,
+                              y0, own0, own1, k, slot, n_sums, round, epsilon,
+                              (float)(lambda * theta), (float)theta, (float)(tau / theta), kt,
+                              rows, tiles_y, tiles_x, (cudaStream_t)stream);
 }

@@ -29,8 +29,15 @@
 // rounds of k_check.
 //
 // No host read or stream synchronisation inside the level: the number of
-// iterations run is added to a device counter. What bounds it on the card,
-// and what the design does about it: tvl1_tile.cuh.
+// iterations run is added to a device counter.
+//
+// The shard form (bnlk_tvl1_level_round, parallel/flow.py) runs one round
+// of k_check iterations under K2Rule on a shard's row block with its halo
+// (tvl1_tile.cuh, round_kernel): a launch cannot trade halo rows with
+// another device, so the caller runs a level's rounds one launch each,
+// the constants from K4's TV-L1 entry in K2's form, and each launch takes
+// its round's stop-or-go from every shard's sum of the round before. What
+// bounds it on the card, and what the design does about it: tvl1_tile.cuh.
 #include <cuda_runtime.h>
 
 #include "bicubic.cuh"
@@ -82,13 +89,7 @@ __global__ void __launch_bounds__(kTileThreads, 1) level_kernel(LevelArgs a) {
       const float u1 = __ldcg(u + i), u2 = __ldcg(u + n + i);
       float s[3];
       bnlk_bicubic_at(i1s, h, w, 3, (float)x + u1, (float)y + u2, s);
-      const float i1w = s[0], i1wx = s[1], i1wy = s[2];
-      const float grad = i1wx * i1wx + i1wy * i1wy;
-      cs[i] = i1wx;
-      cs[n + i] = i1wy;
-      cs[2 * n + i] =
-          grad < kGradIsZero ? 0.0f : -1.0f / fmaxf(grad, kGradIsZero);
-      cs[3 * n + i] = i1w - i1wx * u1 - i1wy * u2 - a.i0[i];
+      bnlk_k2_consts(s[0], s[1], s[2], u1, u2, a.i0[i], cs + i, n);
     }
     grid.sync();
     total += solve_stage<K2Rule, KT>(a.L, sb, cur, cs, a.k_check, a.max_iters,
@@ -118,11 +119,7 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1,
                                void* stream) {
   if (h < 1 || w < 1 || nwarps < 0 || k_check < 1) return (int)cudaErrorInvalidValue;
   LevelArgs a;
-  a.L.h = h;
-  a.L.w = w;
-  a.L.rows = rows;
-  a.L.tiles_y = tiles_y;
-  a.L.tiles_x = tiles_x;
+  tile_block(a.L, h, w, rows, tiles_y, tiles_x, h, 0, 0, h);
   a.L.l_t = lambda * (float)theta;
   a.L.theta = (float)theta;
   a.L.taut = (float)(tau / theta);
@@ -139,4 +136,27 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1,
   cudaStream_t st = (cudaStream_t)stream;
   if (kt != kTileDepth || !tile_plan_ok<kTileDepth>(a.L)) return (int)cudaErrorInvalidValue;
   return launch_tiles(level_kernel<kTileDepth>, &a, a.L, st);
+}
+
+// One round of k iterations under K2Rule on a row block (the shard form):
+// state (in/out), tmp: 6 planes of hb*w floats, rows y0 .. y0 + hb - 1 of
+// an h x w level; consts: 4 planes (i1wx, i1wy, nig, rho_c); partials:
+// tiles_y * tiles_x floats; sums: 2 x n_sums floats, slot (round & 1) *
+// n_sums + slot receiving the sum of the squared update of the round's
+// last iteration over the owned rows own0 .. own1 - 1; flag: the device's
+// int stop-or-go, which round 0 sets and a later round clears (running
+// nothing) where the previous round's sums / (h * w) <= epsilon^2
+// (tvl1_tile.cuh, round_go); iters (or null): a device int that receives
+// += k when the round runs. The plan is tile_plan(hb, w).
+extern "C" int bnlk_tvl1_level_round(void* state, const void* consts, void* tmp,
+                                     void* partials, void* sums, void* flag, void* iters,
+                                     int h, int w, int hb, int y0, int own0,
+                                     int own1, int k, int slot, int n_sums, int round,
+                                     double epsilon, double tau, float lambda,
+                                     double theta, int kt, int rows, int tiles_y,
+                                     int tiles_x, void* stream) {
+  return launch_round<K2Rule>(state, consts, tmp, partials, sums, flag, iters, k, h, w, hb,
+                              y0, own0, own1, k, slot, n_sums, round, epsilon,
+                              lambda * (float)theta, (float)theta, (float)(tau / theta), kt,
+                              rows, tiles_y, tiles_x, (cudaStream_t)stream);
 }

@@ -30,6 +30,23 @@
 // and runs are deterministic (no float atomics). The host never reads the
 // error inside a level.
 //
+// Shard form (parallel/flow.py). The state and constant buffers may hold
+// a row block of the frame: rows y0 .. y0 + hb - 1 of an h-row level (a
+// shard's own rows and the halo rows it takes from its neighbours), with
+// the error summed over the rows it owns only. Border tests stay in the
+// frame's coordinates, so they apply at the frame's true edges alone; the
+// block's other edges read zeros, whose effect reaches one row further
+// each iteration and so stays in the halo for a round of k iterations
+// over a halo of k rows. round_kernel runs one such round in one launch
+// and takes the stop-or-go decision across shards itself: every shard's
+// launch writes its owned rows' sum to its slot of a small array on its
+// device (one row per round parity; the caller copies the slots to the
+// other devices), and the next round's launches add the previous round's
+// slots in slot order, so that every shard on every device takes the same
+// decision, and keep it in a flag on the device that the host reads
+// behind the launches. The whole level is the block y0 = 0, hb = h that
+// owns every row.
+//
 // Arithmetic policies keep each kernel's own semantics: K2Rule the clamp
 // form of the threshold step and zero duals past the last column / row
 // (bwd_nlkalman_tpu/flow/tvl1_fused.py:89-103, 236-253), K3Rule the where
@@ -69,9 +86,26 @@ __host__ __device__ constexpr size_t tile_smem(int rows) {
 }
 
 struct TileLevel {
-  int h, w, rows, tiles_y, tiles_x;
+  int h, w, rows, tiles_y, tiles_x;  // h: the level's rows; tiles over the block
   float l_t, theta, taut;
+  int hb, y0, own0, own1;  // block rows, its first row in the level, rows it owns
 };
+
+// The plan fields of L for a block of hb rows from row y0 of an h x w
+// level, owning its rows own0 .. own1 - 1 (the whole level: hb = h, y0 =
+// 0, own0 = 0, own1 = h).
+__host__ inline void tile_block(TileLevel& L, int h, int w, int rows, int tiles_y,
+                                int tiles_x, int hb, int y0, int own0, int own1) {
+  L.h = h;
+  L.w = w;
+  L.rows = rows;
+  L.tiles_y = tiles_y;
+  L.tiles_x = tiles_x;
+  L.hb = hb;
+  L.y0 = y0;
+  L.own0 = own0;
+  L.own1 = own1;
+}
 
 // K2: constants (x, y, z, w) = (i1wx, i1wy, nig = guarded -1/|grad|^2, rho_c).
 struct K2Rule {
@@ -128,15 +162,15 @@ __device__ __forceinline__ float block_total(float v) {
 }
 
 // n_iter (<= KT) iterations of the region held in shared memory (planes of
-// L.rows x kTileCols floats). A thread's pixels are rows row0,
+// L.rows x kTileCols floats) whose first row is the level's row gy0. A thread's pixels are rows row0,
 // row0 + kTileRowStep, ... of its column (loops unrolled to the most rows
 // a region has, so that a thread's pixels overlap). Iteration j computes
 // only the rows the interior still needs after it (each iteration needs
 // one more row on each side than the next), whole warps at a time. Border
 // rules are tested at each pixel in global coordinates, so no pixel of
 // the frame reads one past it. Returns the thread's sum of the squared
-// update of the last iteration over the interior's in-frame pixels when
-// want_err, else 0.
+// update of the last iteration over the interior's in-frame pixels of the
+// rows the block owns when want_err, else 0.
 template <class Rule, int KT>
 __device__ __forceinline__ float iterate(const TileLevel& L, int gy0, int gx,
                                          int n_iter, bool want_err) {
@@ -169,7 +203,8 @@ __device__ __forceinline__ float iterate(const TileLevel& L, int gy0, int gx,
         const float dy = Rule::diff(pb[s], pb[s - kTileCols], gy, L.h);
         un[q] = v[q] + L.theta * (dx + dy);
       }
-      if (last && own_x && r >= KT && r < KT + th && gy < L.h) {
+      const int by = gy - L.y0;
+      if (last && own_x && r >= KT && r < KT + th && by >= L.own0 && by < L.own1) {
         const float d1 = un[0] - u1, d2 = un[1] - u2;
         e += d1 * d1;
         e += d2 * d2;
@@ -202,15 +237,15 @@ __device__ __forceinline__ float iterate(const TileLevel& L, int gy0, int gx,
   return e;
 }
 
-// Writes the in-frame pixels of tile's interior from shared memory to dst
-// (6 planes of h*w); band_only: only those within KT of the interior's
+// Writes the in-block pixels of tile's interior from shared memory to dst
+// (6 planes of hb*w); band_only: only those within KT of the interior's
 // edge, all that the neighbours' halos read.
 template <int KT>
 __device__ __forceinline__ void write_interior(const TileLevel& L, float* dst,
                                                int tile, bool band_only) {
   constexpr int TW = kTileCols - 2 * KT;
   extern __shared__ float sm[];
-  const size_t n = (size_t)L.h * L.w;
+  const size_t n = (size_t)L.hb * L.w;
   const int plane = L.rows * kTileCols, th = L.rows - 2 * KT;
   const int col = threadIdx.x % kTileCols, row0 = threadIdx.x / kTileCols;
   const int gy0 = (tile / L.tiles_x) * th - KT;
@@ -219,7 +254,7 @@ __device__ __forceinline__ void write_interior(const TileLevel& L, float* dst,
   const bool band_col = col < 2 * KT || col >= TW;
   for (int r = row0; r < L.rows; r += kTileRowStep) {
     const int gy = gy0 + r;
-    if (r < KT || r >= KT + th || gy >= L.h) continue;
+    if (r < KT || r >= KT + th || gy >= L.hb) continue;
     if (band_only && !band_col && r >= 2 * KT && r < th) continue;
     const int s = r * kTileCols + col;
     const size_t i = (size_t)gy * L.w + gx;
@@ -229,8 +264,8 @@ __device__ __forceinline__ void write_interior(const TileLevel& L, float* dst,
 }
 
 // One sub-round: n_iter (<= KT) iterations on every tile this block walks
-// over, from src to dst (6 planes of h*w each), with the constants cs (4
-// planes). With partials non-null, each tile writes there the sum of its
+// over, from src to dst (6 planes of hb*w each), with the constants cs (4
+// planes). Tile rows are the block's. With partials non-null, each tile writes there the sum of its
 // squared update on the last iteration. State written earlier in the same
 // launch is read with __ldcg (through L2, never a stale L1 line). Where
 // the grid has a block for every tile, each block keeps its tile in shared
@@ -244,7 +279,7 @@ __device__ void tile_pass(const TileLevel& L, const float* src, float* dst,
                           bool reload) {
   constexpr int TW = kTileCols - 2 * KT;
   extern __shared__ float sm[];
-  const size_t n = (size_t)L.h * L.w;
+  const size_t n = (size_t)L.hb * L.w;
   const int plane = L.rows * kTileCols, th = L.rows - 2 * KT;
   const int col = threadIdx.x % kTileCols, row0 = threadIdx.x / kTileCols;
   const int n_tiles = L.tiles_y * L.tiles_x;
@@ -258,7 +293,7 @@ __device__ void tile_pass(const TileLevel& L, const float* src, float* dst,
     for (int r = row0; r < L.rows; r += kTileRowStep) {
       if (!full && !ring_col && r >= KT && r < KT + th) continue;
       const int gy = gy0 + r, s = r * kTileCols + col;
-      const bool in = in_x && gy >= 0 && gy < L.h;
+      const bool in = in_x && gy >= 0 && gy < L.hb;
       const size_t i = in ? (size_t)gy * L.w + gx : 0;
 #pragma unroll
       for (int q = 0; q < 6; ++q) sm[q * plane + s] = in ? __ldcg(src + q * n + i) : 0.0f;
@@ -268,7 +303,7 @@ __device__ void tile_pass(const TileLevel& L, const float* src, float* dst,
     }
     __syncthreads();
     const bool want_err = partials != nullptr;
-    const float e = iterate<Rule, KT>(L, gy0, gx, n_iter, want_err);
+    const float e = iterate<Rule, KT>(L, L.y0 + gy0, gx, n_iter, want_err);
     if (want_err) {
       const float s = bnlk_block_sum<kTileThreads>(e);
       if (threadIdx.x == 0) partials[tile] = s;
@@ -318,14 +353,17 @@ __device__ int solve_stage(const TileLevel& L, float* const sb[2], int& cur,
   return it;
 }
 
-// Whether the caller's plan (flow/tvl1_tile.py::tile_plan) is one these
-// kernels take for an h x w level at depth KT.
+// Whether the caller's plan (flow/tvl1_tile.py::tile_plan of the block's
+// hb x w) is one these kernels take at depth KT, for a block inside the
+// level that owns some of its own rows.
 template <int KT>
 __host__ bool tile_plan_ok(const TileLevel& L) {
   const int th = L.rows - 2 * KT;
   constexpr int TW = kTileCols - 2 * KT;
-  return L.rows <= kTileMaxRows && th >= 1 && L.h >= 1 && L.w >= 1 &&
-         L.tiles_y == (L.h + th - 1) / th && L.tiles_x == (L.w + TW - 1) / TW;
+  return L.rows <= kTileMaxRows && th >= 1 && L.h >= 1 && L.w >= 1 && L.hb >= 1 &&
+         L.y0 >= 0 && L.y0 + L.hb <= L.h && 0 <= L.own0 && L.own0 <= L.own1 &&
+         L.own1 <= L.hb && L.tiles_y == (L.hb + th - 1) / th &&
+         L.tiles_x == (L.w + TW - 1) / TW;
 }
 
 // One cooperative launch of kern (one argument, *args) with as many blocks
@@ -350,6 +388,115 @@ __host__ int launch_tiles(Kernel kern, void* args, const TileLevel& L,
   e = cudaLaunchCooperativeKernel((const void*)kern, dim3(grid), dim3(kTileThreads),
                                   kargs, smem, stream);
   return (int)e;
+}
+
+struct RoundArgs {
+  TileLevel L;
+  float* state;          // 6 planes of hb*w: the block's state in, the result out
+  float* tmp;            // 6 planes: the other buffer of the ping-pong pair
+  const float* cs;       // 4 planes
+  float* partials;       // n_tiles tile sums
+  float* sums;           // 2 x n_sums: each shard's owned sum, a row per round parity
+  int* flag;             // the device's stop-or-go: 0 once a round's check held
+  int k;                 // iterations of the round
+  int slot, n_sums;      // this shard's slot of sums, and the shards
+  int round;             // the round of the warp stage: 0 runs at once
+  float eps2, size;      // the check: sum of the previous round's slots / size > eps2
+  int* counter;          // device counter or null: += count when the round runs
+  int count;
+};
+
+// Whether round a.round runs: round 0 always; a later one where the flag
+// still says go and the previous round's sums, added in slot order, over
+// the level's size exceed eps2 (the whole-frame stopping loop's check,
+// solve_stage). Every block of every shard takes the same decision; block
+// 0 stores it in the flag, which a block may read before or after that
+// store: where the store changes it to 0 the check failed anyway.
+__device__ __forceinline__ bool round_go(const RoundArgs& a) {
+  bool go = true;
+  if (a.round > 0) {
+    const float* prev = a.sums + ((a.round - 1) & 1) * a.n_sums;
+    float s = 0.0f;
+    for (int j = 0; j < a.n_sums; ++j) s += __ldcg(prev + j);
+    go = *(volatile int*)a.flag != 0 && s / a.size > a.eps2;
+  }
+  __syncthreads();
+  if (blockIdx.x == 0 && threadIdx.x == 0) *(volatile int*)a.flag = go ? 1 : 0;
+  return go;
+}
+
+// One round of k iterations on a block (the shard form above), in
+// sub-rounds of at most KT, where round_go says so (else nothing runs);
+// the block's own rows' sum of the squared update of the last iteration,
+// summed over its tiles in a fixed order, goes to its slot of sums.
+template <class Rule, int KT>
+__global__ void __launch_bounds__(kTileThreads, 1) round_kernel(RoundArgs a) {
+  if (!round_go(a)) return;
+  const int n_tiles = a.L.tiles_y * a.L.tiles_x;
+  cg::grid_group grid = cg::this_grid();
+  float* const sb[2] = {a.state, a.tmp};
+  int cur = 0;
+  for (int done = 0; done < a.k;) {
+    const int m = min(KT, a.k - done);
+    done += m;
+    tile_pass<Rule, KT>(a.L, sb[cur], sb[1 - cur], a.cs, m,
+                        done == a.k ? a.partials : nullptr, done == m);
+    grid.sync();
+    cur = 1 - cur;
+  }
+  if ((int)gridDim.x >= n_tiles) {  // resident tiles wrote bands only
+    if ((int)blockIdx.x < n_tiles) write_interior<KT>(a.L, sb[cur], blockIdx.x, false);
+    grid.sync();
+  }
+  if (cur == 1) {  // the last sub-round wrote tmp: copy it into state
+    const size_t n6 = 6 * (size_t)a.L.hb * a.L.w;
+    for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n6;
+         i += (size_t)gridDim.x * blockDim.x)
+      a.state[i] = __ldcg(a.tmp + i);
+  }
+  if (blockIdx.x == 0) {
+    float s = 0.0f;
+    for (int t = threadIdx.x; t < n_tiles; t += kTileThreads) s += __ldcg(a.partials + t);
+    s = block_total(s);
+    if (threadIdx.x == 0) {
+      a.sums[(a.round & 1) * a.n_sums + a.slot] = s;
+      if (a.counter != nullptr) *a.counter += a.count;
+    }
+  }
+}
+
+// One round of Rule on a block (round_kernel): the C entries of K2
+// (tvl1_level.cu) and K3 (tvl1_block.cu) with their own scalars.
+template <class Rule>
+__host__ int launch_round(void* state, const void* consts, void* tmp, void* partials,
+                          void* sums, void* flag, void* counter, int count, int h, int w,
+                          int hb, int y0, int own0, int own1, int k, int slot,
+                          int n_sums, int round, double epsilon, float l_t,
+                          float theta, float taut, int kt, int rows, int tiles_y,
+                          int tiles_x, cudaStream_t stream) {
+  if (k < 1 || kt != kTileDepth || n_sums < 1 || slot < 0 || slot >= n_sums || round < 0)
+    return (int)cudaErrorInvalidValue;
+  RoundArgs a;
+  tile_block(a.L, h, w, rows, tiles_y, tiles_x, hb, y0, own0, own1);
+  a.L.l_t = l_t;
+  a.L.theta = theta;
+  a.L.taut = taut;
+  if (!tile_plan_ok<kTileDepth>(a.L)) return (int)cudaErrorInvalidValue;
+  a.state = (float*)state;
+  a.tmp = (float*)tmp;
+  a.cs = (const float*)consts;
+  a.partials = (float*)partials;
+  a.sums = (float*)sums;
+  a.flag = (int*)flag;
+  a.k = k;
+  a.slot = slot;
+  a.n_sums = n_sums;
+  a.round = round;
+  a.eps2 = (float)(epsilon * epsilon);
+  a.size = (float)((double)h * w);
+  a.counter = (int*)counter;
+  a.count = count;
+  return launch_tiles(round_kernel<Rule, kTileDepth>, &a, a.L, stream);
 }
 
 }  // namespace

@@ -47,7 +47,15 @@
 //   state and writes the (4, H, W) constants {i1wx, i1wy, i1wx^2 +
 //   i1wy^2, i1w - i1wx u1 - i1wy u2 - i0} from the same launch, each in
 //   the order and rounding of the eager PyTorch composition it replaced
-//   (12 launches and 0.198 ms of device time a 1080x1920 warp stage).
+//   (12 launches and 0.198 ms of device time a 1080x1920 warp stage); in
+//   K2's form (kConsts == 2) the third plane is nig = -1 / |grad|^2, zero
+//   where |grad|^2 < 1e-10, as K2's threshold step takes it, every plane
+//   from K2's own function (bnlk_k2_consts, bicubic.cuh);
+// - the shard form (parallel/flow.py): both entries write the rows y0 ..
+//   y0 + hb - 1 of an h-row frame, so the flow, occlusion, state, i0 and
+//   outputs hold hb rows while the source holds the whole frame (the
+//   reach of a tap is the flow's, which has no bound). y0 = 0 and hb = h
+//   is the whole frame, with the same arithmetic.
 //
 // Arithmetic: K4's sampler (warp_tap.cuh), in the order and with the
 // bounds test of K2's (bicubic.cuh): NaN flow stays invalid; an occluded
@@ -72,27 +80,29 @@ constexpr int min_blocks() {
   return C >= 1 && C <= 3 ? 16 : 4;
 }
 
-// kConsts: the TV-L1 entry (C == 3): flow from the planar state, the
-// constants written planar; else the warp: interleaved flow in, out and
-// the bool mask written.
-template <int C, bool kConsts>
+// kConsts: 1 or 2, the TV-L1 entry (C == 3) in K3's or K2's form: flow
+// from the planar state, the constants written planar; 0 the warp:
+// interleaved flow in, out and the bool mask written. Output rows are the
+// frame's rows y0 .. y0 + hb - 1; the source im holds all h rows.
+template <int C, int kConsts>
 __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
     warp_tile_kernel(const float* __restrict__ im, const float* __restrict__ flow,
                      const float* __restrict__ aux, float* __restrict__ out,
-                     uint8_t* __restrict__ valid, int h, int w, int c_rt) {
+                     uint8_t* __restrict__ valid, int h, int w, int c_rt, int y0,
+                     int hb) {
   constexpr int CA = C > 0 ? C : kK4GenericC;
   const int c = C > 0 ? C : c_rt;
   const int x = blockIdx.x * kTileW + threadIdx.x;
-  const int y0 = blockIdx.y * kTileH + threadIdx.y;
-  const size_t hw = (size_t)h * w;
+  const int ly0 = blockIdx.y * kTileH + threadIdx.y;
+  const size_t hw = (size_t)hb * w;
   const auto taps = k4_global_taps<C, CA>(im, w, c);
 #pragma unroll
   for (int q = 0; q < kPY; ++q) {
-    const int y = y0 + q * kTY;
-    if (y >= h || x >= w) continue;
-    const size_t idx = (size_t)y * w + x;
+    const int ly = ly0 + q * kTY, y = y0 + ly;
+    if (ly >= hb || x >= w) continue;
+    const size_t idx = (size_t)ly * w + x;
     float u, v;
-    if constexpr (kConsts) {
+    if constexpr (kConsts != 0) {
       u = flow[idx];
       v = flow[hw + idx];
     } else {
@@ -100,10 +110,10 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
       u = f.x;
       v = f.y;
     }
-    const bool live = kConsts || aux == nullptr || aux[idx] == 0.0f;
+    const bool live = kConsts != 0 || aux == nullptr || aux[idx] == 0.0f;
     float res[CA];
     const bool ok = k4_sample<C, CA>((float)x + u, (float)y + v, h, w, c, live, taps, res);
-    if constexpr (kConsts) {
+    if constexpr (kConsts == 1) {
       // the eager composition's order and rounding, no contraction
       const float gx = res[1], gy = res[2];
       out[idx] = gx;
@@ -111,6 +121,9 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
       out[2 * hw + idx] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
       out[3 * hw + idx] = __fsub_rn(
           __fsub_rn(__fsub_rn(res[0], __fmul_rn(gx, u)), __fmul_rn(gy, v)), aux[idx]);
+    } else if constexpr (kConsts == 2) {
+      // K2's own constants (bicubic.cuh), rounded as its level kernel's
+      bnlk_k2_consts(res[0], res[1], res[2], u, v, aux[idx], out + idx, hw);
     } else {
       float* o = out + idx * c;
       if constexpr (C > 0 && C % 2 == 0) {
@@ -127,29 +140,32 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
   }
 }
 
-template <int C, bool kConsts>
+template <int C, int kConsts>
 int launch(const float* im, const float* flow, const float* aux, float* out,
-           uint8_t* valid, int h, int w, int c, cudaStream_t stream) {
-  const dim3 grid((w + kTileW - 1) / kTileW, (h + kTileH - 1) / kTileH);
+           uint8_t* valid, int h, int w, int c, int y0, int hb, cudaStream_t stream) {
+  const dim3 grid((w + kTileW - 1) / kTileW, (hb + kTileH - 1) / kTileH);
   warp_tile_kernel<C, kConsts><<<grid, dim3(kTX, kTY), 0, stream>>>(
-      im, flow, aux, out, valid, h, w, c);
+      im, flow, aux, out, valid, h, w, c, y0, hb);
   return (int)cudaGetLastError();
 }
 
-// A frame the grid covers (at most 65535 tile rows), and the 8-byte
-// alignment of the float2 reads.
-bool bad_args(const void* im, const void* flow, int h, int w) {
-  return h < 1 || w < 1 || (h + kTileH - 1) / kTileH > 65535 ||
-         ((uintptr_t)im & 7) || ((uintptr_t)flow & 7);
+// A frame the grid covers (at most 65535 tile rows), output rows inside
+// it, and the 8-byte alignment of the float2 reads.
+bool bad_args(const void* im, const void* flow, int h, int w, int y0, int hb) {
+  return h < 1 || w < 1 || hb < 1 || y0 < 0 || y0 + hb > h ||
+         (hb + kTileH - 1) / kTileH > 65535 || ((uintptr_t)im & 7) || ((uintptr_t)flow & 7);
 }
 
 }  // namespace
 
-// im (H, W, C) interleaved, flow (H, W, 2), occl (H, W) or null; writes
-// out (H, W, C) and valid (H, W) bytes 0/1.
+// im (H, W, C) interleaved, flow (hb, W, 2), occl (hb, W) or null, for
+// the frame's rows y0 .. y0 + hb - 1; writes out (hb, W, C) and valid
+// (hb, W) bytes 0/1. y0 = 0, hb = H: the whole frame.
 extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
-                         void* out, void* valid, int h, int w, int c, void* stream) {
-  if (c < 1 || c > kK4MaxC || bad_args(im, flow, h, w)) return (int)cudaErrorInvalidValue;
+                         void* out, void* valid, int h, int w, int c, int y0,
+                         int hb, void* stream) {
+  if (c < 1 || c > kK4MaxC || bad_args(im, flow, h, w, y0, hb))
+    return (int)cudaErrorInvalidValue;
   const auto* i = (const float*)im;
   const auto* f = (const float*)flow;
   const auto* o = (const float*)occl;
@@ -157,21 +173,25 @@ extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
   auto* v = (uint8_t*)valid;
   auto s = (cudaStream_t)stream;
   switch (c) {
-    case 1: return launch<1, false>(i, f, o, r, v, h, w, c, s);
-    case 2: return launch<2, false>(i, f, o, r, v, h, w, c, s);
-    case 3: return launch<3, false>(i, f, o, r, v, h, w, c, s);
-    case 6: return launch<6, false>(i, f, o, r, v, h, w, c, s);
-    case 9: return launch<9, false>(i, f, o, r, v, h, w, c, s);
-    default: return launch<0, false>(i, f, o, r, v, h, w, c, s);
+    case 1: return launch<1, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+    case 2: return launch<2, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+    case 3: return launch<3, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+    case 6: return launch<6, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+    case 9: return launch<9, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+    default: return launch<0, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
   }
 }
 
-// i1s (H, W, 3) = (I1, I1x, I1y), state (6, H, W) whose planes 0 and 1
-// are u1 and u2, i0 (H, W); writes consts (4, H, W).
+// i1s (H, W, 3) = (I1, I1x, I1y), state (6, hb, W) whose planes 0 and 1
+// are u1 and u2, i0 (hb, W), for the frame's rows y0 .. y0 + hb - 1;
+// writes consts (4, hb, W): K3's form (nig = 0) or K2's (nig = 1).
 extern "C" int bnlk_warp_tvl1_consts(const void* i1s, const void* state,
                                      const void* i0, void* consts, int h, int w,
-                                     void* stream) {
-  if (bad_args(i1s, state, h, w)) return (int)cudaErrorInvalidValue;
-  return launch<3, true>((const float*)i1s, (const float*)state, (const float*)i0,
-                         (float*)consts, nullptr, h, w, 3, (cudaStream_t)stream);
+                                     int y0, int hb, int nig, void* stream) {
+  if (bad_args(i1s, state, h, w, y0, hb)) return (int)cudaErrorInvalidValue;
+  const auto* i = (const float*)i1s;
+  const auto* st = (const float*)state;
+  auto s = (cudaStream_t)stream;
+  return nig ? launch<3, 2>(i, st, (const float*)i0, (float*)consts, nullptr, h, w, 3, y0, hb, s)
+             : launch<3, 1>(i, st, (const float*)i0, (float*)consts, nullptr, h, w, 3, y0, hb, s);
 }

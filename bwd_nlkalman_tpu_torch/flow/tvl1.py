@@ -117,14 +117,41 @@ def _zoom_flow(u, nw, nh, zfactor, bases):
                         zoom_in(u[..., 1], nw, nh, bases)], dim=-1) * (1.0 / zfactor)
 
 
-def _upsample_chain(u, sizes, s_from, zfactor, bases=None):
+class FlowOps:
+    """The steps of a flow on whole frames: the image preparation, the
+    pyramid's zoom, the flow's upscaling, a level's solve and the warm
+    gate. ``parallel.flow`` runs the same pyramid with their row-sharded
+    forms."""
+
+    def __init__(self, zfactor, bases, engine, tau, lambda_, theta, epsilon):
+        self.zfactor, self.bases, self.engine = zfactor, bases, engine
+        self.kw = dict(tau=tau, lambda_=lambda_, theta=theta, epsilon=epsilon)
+
+    def prep(self, i0, i1):
+        return _prep_pair(i0, i1, self.bases)
+
+    def zoom_out(self, a):
+        return zoom_out(a, self.zfactor, self.bases)
+
+    def zoom_flow(self, u, nw, nh):
+        return _zoom_flow(u, nw, nh, self.zfactor, self.bases)
+
+    def solve(self, a, b, u, nwarps, max_iters):
+        return _solve_level(a, b, u, nwarps=nwarps, max_iters=max_iters,
+                            engine=self.engine, **self.kw)
+
+    def gate(self, a, b, u0) -> bool:
+        return warm_gate_ok(a, b, u0, self.engine)
+
+
+def _upsample_chain(u, sizes, s_from, ops):
     """Zoom the flow from level s_from up to level 0 (tvl1flow_lib.c:427-455)."""
     for s in range(s_from, 0, -1):
-        u = _zoom_flow(u, *sizes[s - 1], zfactor, bases)
+        u = ops.zoom_flow(u, *sizes[s - 1])
     return u
 
 
-def _coarse_to_fine(pyr, sizes, solve, zfactor, bases):
+def _coarse_to_fine(pyr, sizes, solve, ops):
     """Solve every level of ``pyr`` from the coarsest, zero-initialised."""
     cw, ch_ = sizes[len(pyr) - 1]
     u = torch.zeros((ch_, cw, 2), dtype=torch.float32, device=pyr[0][0].device)
@@ -132,8 +159,38 @@ def _coarse_to_fine(pyr, sizes, solve, zfactor, bases):
         u = solve(*pyr[s], u)
         if s == 0:
             break
-        u = _zoom_flow(u, *sizes[s - 1], zfactor, bases)
+        u = ops.zoom_flow(u, *sizes[s - 1])
     return u
+
+
+def flow_pyramid(i0, i1, ops: FlowOps, nscales=100, fscale=0, zfactor=0.5, nwarps=5,
+                 max_iters: int | None = None, return_carry: bool = False):
+    """:func:`tvl1_flow` with its steps taken by ``ops``."""
+    max_iters = MAX_ITERATIONS if max_iters is None else max_iters
+    i0n, i1n = ops.prep(i0, i1)
+    h, w = i0n.shape
+    ns = num_scales(w, h, nscales, zfactor)
+    fs = min(fscale, ns)
+    sizes = _pyramid_sizes(w, h, ns, zfactor)
+    pyr = [(i0n, i1n)]
+    for _ in range(1, ns):
+        a, b = pyr[-1]
+        pyr.append((ops.zoom_out(a), ops.zoom_out(b)))
+
+    def solve(a, b, u):
+        return ops.solve(a, b, u, nwarps, max_iters)
+
+    # levels below fscale are never solved, only upsampled through; with
+    # fscale at or past the coarsest level none is, and the flow stays zero
+    # (the JAX package's loop, flow/tvl1.py:310-323)
+    if fs < ns:
+        u_fs = _coarse_to_fine(pyr[fs:], sizes[fs:], solve, ops)
+        u = _upsample_chain(u_fs, sizes, fs, ops)
+    else:
+        cw, ch_ = sizes[-1]
+        u_fs = i0n.new_zeros((ch_, cw, 2))
+        u = i0n.new_zeros((h, w, 2))
+    return (u, u_fs) if return_carry else u
 
 
 def tvl1_flow(i0, i1, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
@@ -145,33 +202,9 @@ def tvl1_flow(i0, i1, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
     Returns (H, W, 2) float32; with return_carry=True also the
     level-``fscale`` flow (the warm-start carry for tvl1_flow_warm).
     """
-    max_iters = MAX_ITERATIONS if max_iters is None else max_iters
-    i0n, i1n = _prep_pair(i0, i1, bases)
-    h, w = i0n.shape
-    ns = num_scales(w, h, nscales, zfactor)
-    fs = min(fscale, ns)
-    sizes = _pyramid_sizes(w, h, ns, zfactor)
-    pyr = [(i0n, i1n)]
-    for _ in range(1, ns):
-        a, b = pyr[-1]
-        pyr.append((zoom_out(a, zfactor, bases), zoom_out(b, zfactor, bases)))
-
-    def solve(a, b, u):
-        return _solve_level(a, b, u, tau=tau, lambda_=lambda_, theta=theta,
-                            nwarps=nwarps, epsilon=epsilon,
-                            max_iters=max_iters, engine=engine)
-
-    # levels below fscale are never solved, only upsampled through; with
-    # fscale at or past the coarsest level none is, and the flow stays zero
-    # (the JAX package's loop, flow/tvl1.py:310-323)
-    if fs < ns:
-        u_fs = _coarse_to_fine(pyr[fs:], sizes[fs:], solve, zfactor, bases)
-        u = _upsample_chain(u_fs, sizes, fs, zfactor, bases)
-    else:
-        cw, ch_ = sizes[-1]
-        u_fs = i0n.new_zeros((ch_, cw, 2))
-        u = i0n.new_zeros((h, w, 2))
-    return (u, u_fs) if return_carry else u
+    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    return flow_pyramid(i0, i1, ops, nscales, fscale, zfactor, nwarps, max_iters,
+                        return_carry)
 
 
 def warm_gate(a, b, u0, engine: str = "auto"):
@@ -198,6 +231,40 @@ def warm_gate_ok(a, b, u0, engine: str = "auto") -> bool:
     return bool(warm_gate(a, b, u0, engine)[0])
 
 
+def flow_pyramid_warm(i0, i1, u_carry, ops: FlowOps, nscales=100, fscale=0,
+                      zfactor=0.5, nwarps=5, max_iters: int | None = None,
+                      warm_nwarps: int | None = None,
+                      warm_max_iters: int | None = None):
+    """:func:`tvl1_flow_warm` with its steps taken by ``ops``."""
+    max_iters = MAX_ITERATIONS if max_iters is None else max_iters
+    a, b = ops.prep(i0, i1)
+    h, w = a.shape
+    ns = num_scales(w, h, nscales, zfactor)
+    fs = min(fscale, ns)
+    # the level-fscale size, past the coarsest level where fscale is
+    sizes = _pyramid_sizes(w, h, max(ns, fs + 1), zfactor)
+    for _ in range(fs):
+        a, b = ops.zoom_out(a), ops.zoom_out(b)
+
+    def solve(a, b, u, nwarps=nwarps, max_iters=max_iters):
+        return ops.solve(a, b, u, nwarps, max_iters)
+
+    u0 = u_carry.to(torch.float32)
+    if ops.gate(a, b, u0):
+        # the warm branch may run at reduced effort (tvl1.py:428-437)
+        u_fs = solve(a, b, u0,
+                     nwarps=nwarps if warm_nwarps is None else warm_nwarps,
+                     max_iters=max_iters if warm_max_iters is None
+                     else warm_max_iters)
+    else:
+        pyr = [(a, b)]
+        for _ in range(fs + 1, ns):
+            pa, pb = pyr[-1]
+            pyr.append((ops.zoom_out(pa), ops.zoom_out(pb)))
+        u_fs = _coarse_to_fine(pyr, sizes[fs:], solve, ops)
+    return _upsample_chain(u_fs, sizes, fs, ops), u_fs
+
+
 def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
                    nscales=100, fscale=0, zfactor=0.5, nwarps=5, epsilon=0.01,
                    max_iters: int | None = None,
@@ -208,35 +275,9 @@ def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
     initialised from the previous step's level-``fscale`` flow; a carry
     that aligns worse than zero flow (the residual gate) falls back to the
     full cold pyramid. Returns (flow (H, W, 2), u_fs_new)."""
-    max_iters = MAX_ITERATIONS if max_iters is None else max_iters
-    a, b = _prep_pair(i0, i1, bases)
-    h, w = a.shape
-    ns = num_scales(w, h, nscales, zfactor)
-    fs = min(fscale, ns)
-    # the level-fscale size, past the coarsest level where fscale is
-    sizes = _pyramid_sizes(w, h, max(ns, fs + 1), zfactor)
-    for _ in range(fs):
-        a, b = zoom_out(a, zfactor, bases), zoom_out(b, zfactor, bases)
-
-    def solve(a, b, u, nwarps=nwarps, max_iters=max_iters):
-        return _solve_level(a, b, u, tau=tau, lambda_=lambda_, theta=theta,
-                            nwarps=nwarps, epsilon=epsilon,
-                            max_iters=max_iters, engine=engine)
-
-    u0 = u_carry.to(torch.float32)
-    if warm_gate_ok(a, b, u0, engine):
-        # the warm branch may run at reduced effort (tvl1.py:428-437)
-        u_fs = solve(a, b, u0,
-                     nwarps=nwarps if warm_nwarps is None else warm_nwarps,
-                     max_iters=max_iters if warm_max_iters is None
-                     else warm_max_iters)
-    else:
-        pyr = [(a, b)]
-        for _ in range(fs + 1, ns):
-            pa, pb = pyr[-1]
-            pyr.append((zoom_out(pa, zfactor, bases), zoom_out(pb, zfactor, bases)))
-        u_fs = _coarse_to_fine(pyr, sizes[fs:], solve, zfactor, bases)
-    return _upsample_chain(u_fs, sizes, fs, zfactor, bases), u_fs
+    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    return flow_pyramid_warm(i0, i1, u_carry, ops, nscales, fscale, zfactor, nwarps,
+                             max_iters, warm_nwarps, warm_max_iters)
 
 
 def warm_gate_probe(i0, i1, u_carry, fscale: int = 0, zfactor: float = 0.5,

@@ -10,6 +10,11 @@ block). One call is one cooperative launch that runs a warp stage's
 blocks of ``k_iters`` iterations until the stopping rule holds, and reads
 nothing back to the host; ``LAUNCHES`` counts the blocks run, on the
 device.
+
+The shard form, :func:`tvl1_stage_round_cuda` (plain version
+:func:`~bwd_nlkalman_tpu_torch.flow.tvl1_tiled.tvl1_stage_round_plain`),
+runs one block of k iterations on a shard's row block and takes its
+stop-or-go on the device (``tvl1_tile.RoundCtl``, ``parallel/flow.py``).
 """
 
 from __future__ import annotations
@@ -21,6 +26,7 @@ import torch
 from .._build import call, stream_ptr
 from .._dispatch import LaunchCounter, check_tensor
 from . import tvl1_tile
+from .tvl1_cuda import round_cuda
 
 LAUNCHES = LaunchCounter()     # blocks of k_iters iterations run (on the device)
 
@@ -61,3 +67,13 @@ def tvl1_block_cuda(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3):
     out, _, err = tvl1_stage_cuda(state.clone(), consts, k_iters, k_iters, 0.0, tau,
                                   lambda_, theta)
     return out, err
+
+
+def tvl1_stage_round_cuda(state, consts, k, y0, h, halo, ctl, slot=0, r=0, count=False,
+                          tau=0.25, lambda_=0.15, theta=0.3):
+    """Kernel version of ``tvl1_stage_round_plain`` (K3's rule; consts =
+    i1wx, i1wy, grad, rho_c) under ``ctl``'s stop-or-go
+    (``tvl1_cuda.round_cuda``): one launch; where ``count``, the block run
+    is added to ``LAUNCHES`` on the device. Returns ``state``."""
+    return round_cuda("bnlk_tvl1_stage_round", LAUNCHES, state, consts, k, y0, h, halo,
+                      ctl, slot, r, count, (float(tau), float(lambda_), float(theta)))

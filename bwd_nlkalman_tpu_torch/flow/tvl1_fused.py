@@ -12,6 +12,10 @@ by :func:`tvl1_level_plain`, the same algorithm in plain PyTorch:
 - the mean squared update over in-frame pixels, measured on the last
   iteration of each round of ``k_check`` iterations only (:268-285), so
   the iteration count rises in whole rounds.
+
+The shard form (``parallel/flow.py``) runs a level on row blocks, one
+round at a time: :func:`tvl1_level_round` (K2's round entry on CUDA
+tensors, :func:`tvl1_level_round_plain` on CPU tensors).
 """
 
 from __future__ import annotations
@@ -21,8 +25,8 @@ import torch
 
 from .._dispatch import use_kernel
 from ..ops.grad import centered_gradient
-from ..ops.warp import warp_bicubic_zero_multi
-from .tvl1_cuda import tvl1_level_cuda
+from ..ops.warp import bicubic_warp
+from .tvl1_cuda import tvl1_level_cuda, tvl1_level_round_cuda
 
 GRAD_IS_ZERO = 1e-10  # tvl1flow_lib.c:26
 _G = 4                # warp pad width of the TPU kernel's plan
@@ -59,6 +63,26 @@ def _one_iter(U, PA, PB, IG, nig, rho_c, l_t, theta, taut):
     return Un, (PA + taut * UX) * R, (PB + taut * UY) * R
 
 
+def tvl1_stage_consts_plain(i1s, state, i0, y0: int = 0, nig: bool = False):
+    """Plain version of K4's TV-L1 entry: the (4, hb, W) constants {i1wx,
+    i1wy, grad, rho_c} of a warp stage (tvl1_pallas.py:272-275) from i1s
+    (H, W, 3) = (I1, I1x, I1y), the state whose first planes are u1 and u2
+    (hb rows), and i0 (hb, W), for the frame's rows y0 .. y0 + hb - 1 (the
+    whole frame by default). Where a tap leaves the frame the three
+    samples are 0, so there rho_c = -i0. With ``nig``, K2's form: the third
+    plane is nig = -1 / grad, zero where grad < 1e-10 (:200-209), as
+    :func:`tvl1_level_plain` takes it. K3's path (``tvl1_tiled.py``) takes
+    the grad form."""
+    u1, u2 = state[0], state[1]
+    wrp, _ = bicubic_warp(i1s.contiguous(), torch.stack([u1, u2], dim=-1), None,
+                          "plain", y0)
+    i1w, i1wx, i1wy = wrp.unbind(-1)
+    grad = i1wx * i1wx + i1wy * i1wy
+    if nig:
+        grad = torch.where(grad < GRAD_IS_ZERO, 0.0, -1.0 / torch.clamp(grad, min=GRAD_IS_ZERO))
+    return torch.stack([i1wx, i1wy, grad, i1w - i1wx * u1 - i1wy * u2 - i0])
+
+
 def tvl1_level_plain(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
                      nwarps=5, epsilon=0.01, k_check=8, max_iters=300):
     """Plain version of K2. i0, i1: (H, W) float32; u_init: (H, W, 2)."""
@@ -72,13 +96,8 @@ def tvl1_level_plain(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
     PA = torch.zeros_like(U)   # (p11, p21): x-difference duals
     PB = torch.zeros_like(U)   # (p12, p22): y-difference duals
     for _ in range(nwarps):
-        wrp = warp_bicubic_zero_multi(i1s, U[0], U[1], engine="plain")
-        i1w, i1wx, i1wy = wrp[..., 0], wrp[..., 1], wrp[..., 2]
-        grad = i1wx * i1wx + i1wy * i1wy
-        nig = torch.where(grad < GRAD_IS_ZERO, 0.0,
-                          -1.0 / torch.clamp(grad, min=GRAD_IS_ZERO))
-        rho_c = i1w - i1wx * U[0] - i1wy * U[1] - i0
-        IG = torch.stack([i1wx, i1wy])
+        cs = tvl1_stage_consts_plain(i1s, U, i0, nig=True)
+        IG, nig, rho_c = cs[:2], cs[2], cs[3]
         err, n = float("inf"), 0
         while err > eps2 and n < max_iters:
             for _ in range(k_check):
@@ -101,3 +120,70 @@ def tvl1_single_scale_fused(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
     if use_kernel(i0, engine):
         return tvl1_level_cuda(i0, i1, u_init, **kw)
     return tvl1_level_plain(i0, i1, u_init, **kw)
+
+
+def check_round(state, k, y0, h, halo) -> None:
+    """Raise unless the (6, hb, W) block of rows y0 .. y0 + hb - 1 of an
+    h-row level keeps k rows of halo wherever an edge of its own rows is
+    not an edge of the level: the reach of a round of k iterations."""
+    hb = state.shape[1]
+    top, bot = halo
+    if k < 1 or y0 < 0 or y0 + hb > h or top + bot >= hb \
+            or (top < k and y0 != 0) or (bot < k and y0 + hb != h):
+        raise ValueError(f"a round of {k} iterations on rows {y0}..{y0 + hb - 1} "
+                         f"(halo {halo}) of a {h}-row level")
+
+
+def edge_rows(y0: int, hb: int, h: int) -> tuple[int, int]:
+    """The zero rows a round pads a block of rows y0 .. y0 + hb - 1 with,
+    above and below, where its edge is not the level's: there the level's
+    border rules must not apply, and the rows beyond read zeros, as the
+    kernels' tiles do (csrc/tvl1_tile.cuh)."""
+    return int(y0 > 0), int(y0 + hb < h)
+
+
+def padded(x, pad):
+    """x (planes, hb, W) with pad = (above, below) zero rows."""
+    z = x.new_zeros((x.shape[0], 1, x.shape[2]))
+    return torch.cat([z] * pad[0] + [x] + [z] * pad[1], dim=1)
+
+
+def tvl1_level_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15,
+                           theta=0.3):
+    """Plain version of K2's round entry: ``k`` iterations of
+    :func:`tvl1_level_plain` on the (6, hb, W) state block {u1, u2, p11,
+    p12, p21, p22} of the level's rows y0 .. y0 + hb - 1 (h rows in all),
+    with the (4, hb, W) constants {i1wx, i1wy, nig, rho_c}. The border
+    rules apply at the level's edges only (:func:`edge_rows`). Its
+    ``halo`` = (top, bottom) rows are a neighbour's, k of them where the
+    block's edge is not the level's: the zeros read past that edge reach
+    one row further each iteration, so they stay in the halo
+    (:func:`check_round`). Returns (new block, the sum of the squared
+    update of the last iteration over its own rows, 0-d): the level's error
+    is the sum over every shard, divided by its pixels."""
+    check_round(state, k, y0, h, halo)
+    pad = edge_rows(y0, state.shape[1], h)
+    st, cs = padded(state, pad), padded(consts, pad)
+    l_t = float(np.float32(lambda_) * np.float32(theta))
+    taut = tau / theta
+    U, PA, PB = st[:2], st[2::2], st[3::2]
+    IG, nig, rho_c = cs[:2], cs[2], cs[3]
+    for _ in range(k):
+        Up = U
+        U, PA, PB = _one_iter(U, PA, PB, IG, nig, rho_c, l_t, theta, taut)
+    rows = slice(pad[0], st.shape[1] - pad[1])
+    dU = (U - Up)[:, pad[0] + halo[0]:st.shape[1] - pad[1] - halo[1]]
+    return (torch.stack([U[0], U[1], PA[0], PB[0], PA[1], PB[1]])[:, rows].contiguous(),
+            torch.sum(dU * dU))
+
+
+def tvl1_level_round(state, consts, k, y0, h, halo, ctl, slot, r, count=False, tau=0.25,
+                     lambda_=0.15, theta=0.3, engine: str = "auto"):
+    """Round ``r`` of K2's rule on shard ``slot``'s block under ``ctl``'s
+    stop-or-go (``tvl1_tile.RoundCtl``): K2's round entry on CUDA tensors
+    (updates ``state`` in place), its plain version on CPU tensors. Returns
+    the block; its owned sum is in ``ctl.sums``."""
+    kw = dict(tau=tau, lambda_=lambda_, theta=theta)
+    if use_kernel(state, engine):
+        return tvl1_level_round_cuda(state, consts, k, y0, h, halo, ctl, slot, r, count, **kw)
+    return ctl.run_plain(tvl1_level_round_plain, state, consts, k, y0, h, halo, slot, r, **kw)

@@ -1,5 +1,6 @@
 """Launch plan of the TV-L1 tile engine (``csrc/tvl1_tile.cuh``) that K2
-and K3 share.
+and K3 share, and the stop-or-go of its shard form's rounds
+(:class:`RoundCtl`).
 
 A thread block holds a region of ``rows`` x ``COLS`` pixels of the six
 state planes and the four constant planes in shared memory: an interior
@@ -17,7 +18,11 @@ rows.
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+
+import numpy as np
+import torch
 
 COLS = 128                  # region columns, halo included (kTileCols)
 MAX_ROWS = 44               # region rows at most (kTileMaxRows)
@@ -42,6 +47,7 @@ class TilePlan:
         return self.tiles[0] * self.tiles[1]
 
 
+@functools.lru_cache(maxsize=None)
 def tile_plan(h: int, w: int, sms: int = SMS) -> TilePlan:
     """The tiles of an h x w level on a card of ``sms`` SMs; raises for a
     region that does not fit a block's shared memory or an empty level."""
@@ -70,3 +76,48 @@ def sub_rounds(k: int) -> list[int]:
     if k < 1:
         raise ValueError(f"a round has at least one iteration, got {k}")
     return [KT] * (k // KT) + ([k % KT] if k % KT else [])
+
+
+class RoundCtl:
+    """The stop-or-go of a level's sharded rounds on one device, shared by
+    the round entries (K2's and K3's) of the shards that run there: the
+    int32 ``flag`` (1 = go), and ``sums`` (2, n), each of the n shards'
+    owned sum of the squared update of a round, a row per round parity
+    (``csrc/tvl1_tile.cuh``, ``round_go``). Round 0 of a warp stage runs
+    and sets the flag; a later one runs where the flag is still set and
+    the previous round's sums, added in shard order, over the level's size
+    exceed epsilon squared, else clears it. ``buffers`` keeps each shard's
+    scratch of the kernel's launches for the level."""
+
+    def __init__(self, n: int, device, epsilon: float, h: int, w: int):
+        self.flag = torch.ones(1, dtype=torch.int32, device=device)
+        self.sums = torch.zeros((2, n), dtype=torch.float32, device=device)
+        self.epsilon, self.h, self.w = float(epsilon), h, w
+        self.buffers: dict = {}
+
+    @property
+    def n(self) -> int:
+        return self.sums.shape[1]
+
+    def go(self, r: int) -> bool:
+        """Plain version of ``round_go``: whether round ``r`` runs, kept in
+        the flag."""
+        go = True
+        if r > 0:
+            s = np.float32(0.0)
+            for v in self.sums[(r - 1) % 2].tolist():
+                s = np.float32(s + np.float32(v))
+            eps2 = np.float32(self.epsilon * self.epsilon)
+            go = bool(self.flag[0]) and bool(s / np.float32(self.h * self.w) > eps2)
+        self.flag.fill_(int(go))
+        return go
+
+    def run_plain(self, fn, state, consts, k, y0, h, halo, slot, r, **kw):
+        """A round entry's plain version ``fn`` under the rule above:
+        (state, consts, k, y0, h, halo) -> (new block, owned sum). Returns
+        the block (as it was where the round does not run)."""
+        if not self.go(r):
+            return state
+        out, s = fn(state, consts, k, y0, h, halo, **kw)
+        self.sums[r % 2, slot] = s
+        return out

@@ -26,6 +26,12 @@ whatever the level size, tested with ``n < max_iters`` and
 ``n += K_ITERS``, so a level may run 312 iterations for a cap of 300.
 The dual planes start at zero for each level and carry across its warp
 stages (:267, 310).
+
+The shard form (``parallel/flow.py``) runs a level on row blocks, one
+block of iterations at a time: :func:`tvl1_stage_round` (K3's round entry
+on CUDA tensors, :func:`tvl1_stage_round_plain` on CPU tensors), with the
+constants of each block's rows from :func:`tvl1_stage_consts` given the
+block's first row.
 """
 
 from __future__ import annotations
@@ -35,9 +41,9 @@ import torch
 
 from .._dispatch import use_kernel
 from ..ops.grad import centered_gradient, divergence, forward_gradient
-from ..ops.warp import warp_bicubic_zero_multi
 from ..ops.warp_cuda import warp_tvl1_consts_cuda
-from .tvl1_block_cuda import tvl1_block_cuda, tvl1_stage_cuda
+from .tvl1_block_cuda import tvl1_block_cuda, tvl1_stage_cuda, tvl1_stage_round_cuda
+from .tvl1_fused import check_round, edge_rows, padded, tvl1_stage_consts_plain
 
 GRAD_IS_ZERO = 1e-10  # tvl1flow_lib.c:26
 K_ITERS = 24          # iterations per block (tvl1_pallas.py:32)
@@ -64,12 +70,8 @@ def _one_iter(st, cs, l_t, theta, taut):
                         (p22 + taut * u2y) / ng2])
 
 
-def tvl1_block_plain(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3):
-    """Plain version of K3: ``k_iters`` iterations of the (6, H, W) state
-    {u1, u2, p11, p12, p21, p22} against the (4, H, W) constants {i1wx,
-    i1wy, grad, rho_c}. Returns (new state, mean squared update of the
-    last iteration as a 0-d tensor)."""
-    _, h, w = state.shape
+def _iterate(state, consts, k_iters, tau, lambda_, theta):
+    """(state after ``k_iters`` iterations, the state before the last)."""
     # the TPU kernel's scalars: Python floats, rounded to f32 where used
     l_t = float(np.float32(lambda_ * theta))
     taut = float(np.float32(tau / theta))
@@ -77,8 +79,50 @@ def tvl1_block_plain(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3):
     for _ in range(k_iters):
         prev = state
         state = _one_iter(state, consts, l_t, theta, taut)
+    return state, prev
+
+
+def _sq_update(state, prev):
     du = state[:2] - prev[:2]
-    return state, (torch.sum(du[0] * du[0]) + torch.sum(du[1] * du[1])) / (h * w)
+    return torch.sum(du[0] * du[0]) + torch.sum(du[1] * du[1])
+
+
+def tvl1_block_plain(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3):
+    """Plain version of K3: ``k_iters`` iterations of the (6, H, W) state
+    {u1, u2, p11, p12, p21, p22} against the (4, H, W) constants {i1wx,
+    i1wy, grad, rho_c}. Returns (new state, mean squared update of the
+    last iteration as a 0-d tensor)."""
+    _, h, w = state.shape
+    state, prev = _iterate(state, consts, k_iters, tau, lambda_, theta)
+    return state, _sq_update(state, prev) / (h * w)
+
+
+def tvl1_stage_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15,
+                           theta=0.3):
+    """Plain version of K3's round entry: a block of ``k`` iterations of
+    :func:`tvl1_block_plain` on the (6, hb, W) state block of the level's
+    rows y0 .. y0 + hb - 1 (h rows in all), the border rules at the level's
+    edges only, whose ``halo`` = (top, bottom) rows are a neighbour's (as
+    ``tvl1_level_round_plain``). Returns (new block, the sum of the squared
+    update of the last iteration over its own rows, 0-d)."""
+    check_round(state, k, y0, h, halo)
+    pad = edge_rows(y0, state.shape[1], h)
+    state, prev = _iterate(padded(state, pad), padded(consts, pad), k, tau, lambda_, theta)
+    own = slice(pad[0] + halo[0], state.shape[1] - pad[1] - halo[1])
+    return (state[:, pad[0]:state.shape[1] - pad[1]].contiguous(),
+            _sq_update(state[:, own], prev[:, own]))
+
+
+def tvl1_stage_round(state, consts, k, y0, h, halo, ctl, slot, r, count=False, tau=0.25,
+                     lambda_=0.15, theta=0.3, engine: str = "auto"):
+    """Round ``r`` of K3's rule on shard ``slot``'s block under ``ctl``'s
+    stop-or-go (``tvl1_tile.RoundCtl``): K3's round entry on CUDA tensors
+    (updates ``state`` in place), its plain version on CPU tensors. Returns
+    the block; its owned sum is in ``ctl.sums``."""
+    kw = dict(tau=tau, lambda_=lambda_, theta=theta)
+    if use_kernel(state, engine):
+        return tvl1_stage_round_cuda(state, consts, k, y0, h, halo, ctl, slot, r, count, **kw)
+    return ctl.run_plain(tvl1_stage_round_plain, state, consts, k, y0, h, halo, slot, r, **kw)
 
 
 def tvl1_block(state, consts, k_iters, tau=0.25, lambda_=0.15, theta=0.3,
@@ -108,26 +152,15 @@ def tvl1_stage_plain(state, consts, k_iters, max_iters, epsilon, tau=0.25,
     return state, blocks
 
 
-def tvl1_stage_consts_plain(i1s, state, i0):
-    """Plain version of K4's TV-L1 entry: the (4, H, W) constants {i1wx,
-    i1wy, grad, rho_c} of a warp stage (tvl1_pallas.py:272-275) from i1s
-    (H, W, 3) = (I1, I1x, I1y), the (6, H, W) state whose first planes are
-    u1 and u2, and i0 (H, W). Where a tap leaves the frame the three
-    samples are 0, so there rho_c = -i0."""
-    u1, u2 = state[0], state[1]
-    wrp = warp_bicubic_zero_multi(i1s, u1, u2, engine="plain")
-    i1w, i1wx, i1wy = wrp.unbind(-1)
-    return torch.stack([i1wx, i1wy, i1wx * i1wx + i1wy * i1wy,
-                        i1w - i1wx * u1 - i1wy * u2 - i0])
-
-
-def tvl1_stage_consts(i1s, state, i0, engine: str = "auto"):
-    """K4's TV-L1 entry on CUDA tensors, its plain version on CPU tensors.
+def tvl1_stage_consts(i1s, state, i0, engine: str = "auto", y0: int = 0,
+                      nig: bool = False):
+    """K4's TV-L1 entry on CUDA tensors, its plain version on CPU tensors;
+    ``y0`` and ``nig`` as :func:`tvl1_stage_consts_plain`'s.
 
     ``engine="plain"`` runs the plain version on any device."""
     if use_kernel(i0, engine):
-        return warp_tvl1_consts_cuda(i1s, state, i0)
-    return tvl1_stage_consts_plain(i1s, state, i0)
+        return warp_tvl1_consts_cuda(i1s, state, i0, y0, nig)
+    return tvl1_stage_consts_plain(i1s, state, i0, y0, nig)
 
 
 def tvl1_single_scale_tiled(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,

@@ -1,8 +1,21 @@
-"""Pure-numpy image codecs (PNG, TIFF, PFM, Middlebury FLO).
+"""Image codecs (PNG, TIFF, PFM, Middlebury FLO, and JPEG natively).
 
-The port's own copy of ``bwd_nlkalman_tpu.io.codecs``; it writes the same
-bytes. The JAX package's optional native C++ codec library is not used:
-JPEG raises here, as it does there without that library.
+The port's own copy of ``bwd_nlkalman_tpu.io.codecs``. As there, reads
+and writes go through the native io library (``native/``: libpng,
+libtiff, libjpeg, C++ PFM and FLO) where ``native`` below routes them
+there and it has the format's codec, and through the pure-numpy codecs
+below otherwise, or where a native call fails (JAX io/codecs.py:37-94).
+The pure codecs write the JAX package's pure codecs' bytes. JPEG exists
+only natively (there is no pure decoder): without the library, or without
+libjpeg in it, a JPEG path raises.
+
+``native`` picks the route in place of the JAX package's
+``BNLK_NO_NATIVE`` environment variable: None (the default) takes the
+library for JPEG only, which has no other route, building it at first
+use, so that no build left in the checkout changes what the other formats
+write; True takes it for every format it has (building it at first use),
+as the JAX package does wherever its library is built; False never takes
+it.
 
 All readers return float32 (H, W, C) arrays; writers accept float arrays
 and choose the stored type per format conventions.  Row order is top-down
@@ -19,6 +32,30 @@ import zlib
 import numpy as np
 
 _FLO_MAGIC = 202021.25  # Middlebury sanity check (lib/iio/iio.c:2073-2090)
+_JPEG = (".jpg", ".jpeg")
+
+
+def _native(path: str, native: bool | None):
+    """The native io module where ``native`` routes ``path`` through it and
+    it has the format's codec, else None."""
+    if native is False or (native is None
+                           and os.path.splitext(path)[1].lower() not in _JPEG):
+        return None
+    from .. import native as nat
+
+    if not nat.available():
+        if native is None:
+            return None
+        raise RuntimeError("native=True: the native io library needs g++ to build")
+    return nat if nat.has_codec(path) else None
+
+
+def _no_jpeg(path: str) -> ValueError:
+    # JPEG lives in the native library only (libjpeg, like iio's
+    # I_CAN_HAS_LIBJPEG path, lib/iio/iio.c:30); no pure-python decoder
+    return ValueError(f"{path}: JPEG needs a native io library, which this package "
+                      "does not have here (native/ builds it with g++ where jpeglib.h "
+                      "is found)")
 
 
 # ---------------------------------------------------------------------------
@@ -26,7 +63,13 @@ _FLO_MAGIC = 202021.25  # Middlebury sanity check (lib/iio/iio.c:2073-2090)
 # ---------------------------------------------------------------------------
 
 
-def read_image(path: str) -> np.ndarray:
+def read_image(path: str, native: bool | None = None) -> np.ndarray:
+    nat = _native(path, native)
+    if nat is not None:
+        try:
+            return nat.read_image(path)
+        except Exception:
+            pass
     ext = os.path.splitext(path)[1].lower()
     if ext == ".flo":
         return read_flo(path)
@@ -36,16 +79,31 @@ def read_image(path: str) -> np.ndarray:
         return read_png(path)
     if ext in (".tif", ".tiff"):
         return read_tiff(path)
-    if ext in (".jpg", ".jpeg"):
-        # JPEG lives in a native library only (libjpeg, like iio's
-        # I_CAN_HAS_LIBJPEG path, lib/iio/iio.c:30); no pure-python decoder
-        raise ValueError(f"{path}: JPEG needs a native io library, which "
-                         "this package does not have")
+    if ext in _JPEG:
+        raise _no_jpeg(path)
     raise ValueError(f"unsupported image format: {path}")
 
 
-def write_image(path: str, img: np.ndarray) -> None:
+def write_image(path: str, img: np.ndarray, native: bool | None = None) -> None:
     ext = os.path.splitext(path)[1].lower()
+    nat = _native(path, native)
+    if nat is not None:
+        try:
+            img3 = np.asarray(img)
+            if ext == ".flo":
+                return nat.write_flo(path, img3)
+            if ext == ".pfm":
+                return nat.write_pfm(path, img3)
+            if ext == ".png":
+                depth = 16 if (img3.dtype == np.uint16
+                               or np.nanmax(img3, initial=0) > 255.5) else 8
+                return nat.write_png(path, img3.astype(np.float32), depth)
+            if ext in (".tif", ".tiff"):
+                return nat.write_tiff(path, img3)
+            if ext in _JPEG:
+                return nat.write_jpeg(path, img3)
+        except Exception:
+            pass
     if ext == ".flo":
         return write_flo(path, img)
     if ext == ".pfm":
@@ -54,9 +112,8 @@ def write_image(path: str, img: np.ndarray) -> None:
         return write_png(path, img)
     if ext in (".tif", ".tiff"):
         return write_tiff(path, img)
-    if ext in (".jpg", ".jpeg"):
-        raise ValueError(f"{path}: JPEG needs a native io library, which "
-                         "this package does not have")
+    if ext in _JPEG:
+        raise _no_jpeg(path)
     raise ValueError(f"unsupported image format: {path}")
 
 

@@ -30,13 +30,15 @@ def _cubic(v0, v1, v2, v3, x):
 
 
 def bicubic_warp_plain(im: torch.Tensor, flow: torch.Tensor,
-                       occl: torch.Tensor | None = None):
-    """Plain version of K4. im (H, W, C), flow (H, W, 2), occl (H, W) or None
-    (nonzero = occluded). Returns (out (H, W, C) zeroed where invalid,
-    valid (H, W) bool)."""
+                       occl: torch.Tensor | None = None, y0: int = 0):
+    """Plain version of K4. im (H, W, C), flow (hb, W, 2), occl (hb, W) or
+    None (nonzero = occluded), for the frame's rows y0 .. y0 + hb - 1 (the
+    whole frame by default: hb = H). Returns (out (hb, W, C) zeroed where
+    invalid, valid (hb, W) bool)."""
     h, w, c = im.shape
+    hb = flow.shape[0]
     yy, xx = torch.meshgrid(
-        torch.arange(h, dtype=flow.dtype, device=flow.device),
+        torch.arange(y0, y0 + hb, dtype=flow.dtype, device=flow.device),
         torch.arange(w, dtype=flow.dtype, device=flow.device), indexing="ij")
     cx = xx + flow[..., 0]
     cy = yy + flow[..., 1]
@@ -52,7 +54,7 @@ def bicubic_warp_plain(im: torch.Tensor, flow: torch.Tensor,
     cols = []
     for i in range(4):
         rows = [flat[torch.clamp((by + k) * w + bx + i, max=h * w - 1).reshape(-1)]
-                .reshape(h, w, c) for k in range(4)]
+                .reshape(hb, w, c) for k in range(4)]
         cols.append(_cubic(rows[0], rows[1], rows[2], rows[3], fy))
     out = _cubic(cols[0], cols[1], cols[2], cols[3], fx)
     if occl is not None:
@@ -60,13 +62,14 @@ def bicubic_warp_plain(im: torch.Tensor, flow: torch.Tensor,
     return torch.where(valid[..., None], out, 0.0), valid
 
 
-def bicubic_warp(im, flow, occl=None, engine: str = "auto"):
-    """K4 on CUDA tensors, its plain version on CPU tensors.
+def bicubic_warp(im, flow, occl=None, engine: str = "auto", y0: int = 0):
+    """K4 on CUDA tensors, its plain version on CPU tensors; given ``y0``,
+    the rows y0 .. y0 + hb - 1 of the frame that ``flow`` (hb, W, 2) covers.
 
     ``engine="plain"`` runs the plain version on any device."""
     if use_kernel(im, engine):
-        return bicubic_warp_cuda(im, flow, occl)
-    return bicubic_warp_plain(im, flow, occl)
+        return bicubic_warp_cuda(im, flow, occl, y0)
+    return bicubic_warp_plain(im, flow, occl, y0)
 
 
 def warp_bicubic_nan(im: torch.Tensor, flow: torch.Tensor,

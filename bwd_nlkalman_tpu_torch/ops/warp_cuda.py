@@ -5,6 +5,10 @@ Its plain PyTorch versions are
 :func:`bwd_nlkalman_tpu_torch.ops.warp.bicubic_warp_plain` (the warp) and
 :func:`bwd_nlkalman_tpu_torch.flow.tvl1_tiled.tvl1_stage_consts_plain`
 (the TV-L1 entry: a warp stage's constants, from the same launch).
+
+Both entries have a shard form (``parallel/flow.py``): given ``y0``, the
+flow (or state), occlusion, i0 and outputs hold rows ``y0 .. y0 + hb - 1``
+of the frame, and the source image holds the whole frame.
 """
 
 from __future__ import annotations
@@ -35,24 +39,33 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 8 == 0 else t.clone()
 
 
+def _check_rows(y0: int, hb: int, h: int) -> None:
+    if y0 < 0 or hb < 1 or y0 + hb > h:
+        raise ValueError(f"rows {y0}..{y0 + hb - 1} are not rows of a {h}-row frame")
+
+
 def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
-                      occl: torch.Tensor | None = None):
-    """Kernel version of ``bicubic_warp_plain``: (out (H, W, C), valid (H, W))."""
+                      occl: torch.Tensor | None = None, y0: int = 0):
+    """Kernel version of ``bicubic_warp_plain``: (out (hb, W, C), valid (hb,
+    W)) for the frame's rows y0 .. y0 + hb - 1, where flow is (hb, W, 2)
+    (the whole frame by default)."""
     h, w, c = im.shape
     _check_frame(h, w, c)
+    hb = flow.shape[0]
+    _check_rows(y0, hb, h)
     dev = im.device
     if dev.type != "cuda":
         raise ValueError("bicubic_warp_cuda takes CUDA tensors")
     check_tensor(im, "im", (h, w, c), torch.float32, dev)
-    check_tensor(flow, "flow", (h, w, 2), torch.float32, dev)
+    check_tensor(flow, "flow", (hb, w, 2), torch.float32, dev)
     if occl is not None:
-        check_tensor(occl, "occl", (h, w), torch.float32, dev)
+        check_tensor(occl, "occl", (hb, w), torch.float32, dev)
     im, flow = _aligned(im), _aligned(flow)
-    out = torch.empty((h, w, c), dtype=torch.float32, device=dev)
-    valid = torch.empty((h, w), dtype=torch.bool, device=dev)
+    out = torch.empty((hb, w, c), dtype=torch.float32, device=dev)
+    valid = torch.empty((hb, w), dtype=torch.bool, device=dev)
     call("bnlk_warp", im.data_ptr(), flow.data_ptr(),
          None if occl is None else occl.data_ptr(), out.data_ptr(),
-         valid.data_ptr(), h, w, c, ctypes.c_void_p(stream_ptr(dev)))
+         valid.data_ptr(), h, w, c, int(y0), hb, ctypes.c_void_p(stream_ptr(dev)))
     LAUNCHES.add()
     if c == 9:
         LAUNCHES_C9.add()
@@ -60,22 +73,28 @@ def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
 
 
 def warp_tvl1_consts_cuda(i1s: torch.Tensor, state: torch.Tensor,
-                          i0: torch.Tensor) -> torch.Tensor:
+                          i0: torch.Tensor, y0: int = 0, nig: bool = False) -> torch.Tensor:
     """Kernel version of ``tvl1_stage_consts_plain``: i1s (H, W, 3) = (I1,
-    I1x, I1y) warped along u1 = state[0], u2 = state[1] of the (6, H, W)
-    TV-L1 state, and i0 (H, W), to the (4, H, W) constants {i1wx, i1wy,
-    i1wx^2 + i1wy^2, i1w - i1wx u1 - i1wy u2 - i0}, in one launch."""
-    h, w = i0.shape
+    I1x, I1y) warped along u1 = state[0], u2 = state[1] of the (6, hb, W)
+    TV-L1 state, and i0 (hb, W), to the (4, hb, W) constants {i1wx, i1wy,
+    i1wx^2 + i1wy^2, i1w - i1wx u1 - i1wy u2 - i0}, in one launch, for the
+    frame's rows y0 .. y0 + hb - 1 (the whole frame by default). With
+    ``nig`` the third plane is K2's nig = -1 / (i1wx^2 + i1wy^2), zero
+    where that is below 1e-10."""
+    h, w = i1s.shape[:2]
+    hb = i0.shape[0]
     _check_frame(h, w, 3)
+    _check_rows(y0, hb, h)
     dev = i0.device
     if dev.type != "cuda":
         raise ValueError("warp_tvl1_consts_cuda takes CUDA tensors")
     check_tensor(i1s, "i1s", (h, w, 3), torch.float32, dev)
-    check_tensor(state, "state", (6, h, w), torch.float32, dev)
-    check_tensor(i0, "i0", (h, w), torch.float32, dev)
+    check_tensor(state, "state", (6, hb, w), torch.float32, dev)
+    check_tensor(i0, "i0", (hb, w), torch.float32, dev)
     i1s, state = _aligned(i1s), _aligned(state)
-    consts = torch.empty((4, h, w), dtype=torch.float32, device=dev)
+    consts = torch.empty((4, hb, w), dtype=torch.float32, device=dev)
     call("bnlk_warp_tvl1_consts", i1s.data_ptr(), state.data_ptr(), i0.data_ptr(),
-         consts.data_ptr(), h, w, ctypes.c_void_p(stream_ptr(dev)))
+         consts.data_ptr(), h, w, int(y0), hb, int(bool(nig)),
+         ctypes.c_void_p(stream_ptr(dev)))
     LAUNCHES.add()
     return consts

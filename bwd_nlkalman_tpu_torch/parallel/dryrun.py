@@ -16,6 +16,7 @@ import torch
 from ..flow.tvl1 import luma, warm_gate_probe
 from ..params import FilterMode, default_params
 from ..pipeline.sequence import FlowConfig
+from .flow import STATS as FLOW_STATS
 from .mesh import make_mesh
 from .sequence import denoise_sequence_sharded
 from .spatial import _spatial_pass, resolve_engine, shard_halo
@@ -40,8 +41,10 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
 
     1. ``denoise_sequence_sharded`` on a dp=1 x sp=n mesh: production
        NL-Kalman parameters (psz 8, search 10/5, 20-row step-aligned
-       halos), production flow (``FlowConfig(fscale=1, warm_start=True)``),
-       frames (3, 40 n, 512, 1): the forward loop and the RTS reverse loop;
+       halos), production flow (``FlowConfig(fscale=1, warm_start=True)``,
+       sharded: ``parallel/flow.py``), frames (3, 40 n, 512, 1): the
+       forward loop and the RTS reverse loop, with the flow levels that ran
+       sharded and those the small-level rule ran whole;
        the engine the passes ran on (``resolve_engine``) and the warm-gate
        branch of the second step, recomputed through ``warm_gate_probe``
        from the carry the sharded sequence seeds;
@@ -62,8 +65,11 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
     clean = np.stack([base[i:i + h, i:i + w] for i in range(t)])[..., None]
     noisy = torch.from_numpy(
         clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)).to(mesh1.first)
+    FLOW_STATS.reset()
     flt1, flt2, smo1 = denoise_sequence_sharded(noisy, sigma, mesh1, p1, p2, ps,
                                                 flow_cfg=cfg)
+    levels = {"sharded": sorted(set(FLOW_STATS.levels_sharded)),
+              "whole": sorted(set(FLOW_STATS.levels_whole))}
     if smo1.shape != noisy.shape or not bool(torch.isfinite(smo1).all()):
         raise RuntimeError("dryrun_multichip: the sharded sequence's smo1 is not finite "
                            "frames of the clip's shape")
@@ -93,7 +99,8 @@ def dryrun_multichip(n_devices: int, devices=None) -> str:
     line = (f"dryrun_multichip OK: sharded end-to-end sequence (filter loop + RTS "
             f"reverse loop) on dp=1 x sp={sp} mesh of {how}, frames {tuple(noisy.shape)}, "
             f"production params psz=8 search 10/5 (halo {halo}), flow fscale=1 "
-            f"full-pyramid warm-started; measured: NLK engine dispatched = {engine} "
+            f"full-pyramid warm-started and sharded (levels sharded {levels['sharded']}, "
+            f"run whole by the small-level rule {levels['whole']}); measured: NLK engine dispatched = {engine} "
             f"(resolve_engine on this mesh), warm-gate branch executed at step 2 "
             f"(r_warm={float(r_warm):.4f} <= r_zero={float(r_zero):.4f}); {batched}")
     print(line, flush=True)

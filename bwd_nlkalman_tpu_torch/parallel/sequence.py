@@ -4,11 +4,14 @@ loop and backward RTS smoothing, flow included) over a ('dp', 'sp') mesh.
 Port of ``bwd_nlkalman_tpu.parallel.sequence`` (``denoise_sequence_sharded``
 :60-205). It is the port's ``pipeline.sequence.denoise_sequence`` given
 the mesh: the same frame-0 passes, warm-start peel and loops, with every
-NL-Kalman pass row-sharded (``parallel/spatial.py``). Flow, occlusion,
-color and warps run on whole frames on the mesh's first device (K2, and
-K4 for the warps, on the card); JAX leaves them to GSPMD. So on one clip
-the outputs equal the unsharded ``denoise_sequence``'s up to the order of
-the fold's sums.
+NL-Kalman pass row-sharded (``parallel/spatial.py``) and the flows,
+occlusion masks and warps too (``parallel/flow.py``: K2 or K3 and K4 on
+each shard's rows on the card), along the same 'sp' rows that JAX leaves
+to GSPMD. A flow level whose shards would own fewer rows than the halo
+of a round (the small-level rule) runs whole on the mesh's first device;
+colour conversion runs there on whole frames. So on one clip the outputs
+equal the unsharded ``denoise_sequence``'s up to the order of the fold's
+sums and of the flow's stopping sums.
 """
 
 from __future__ import annotations

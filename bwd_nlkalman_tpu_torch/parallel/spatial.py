@@ -32,8 +32,8 @@ from ..core.engine_cuda import pass_radius
 from ..core.nlkalman import _prepare, k1_supported, pick_engine
 from ..ops.bases import make_bases
 from ..ops.color import opp2rgb, rgb2opp
-from ..ops.warp import warp_bicubic_nan
 from ..params import NLKParams
+from .flow import sharded_warp
 from .mesh import Mesh
 
 
@@ -212,16 +212,17 @@ def sharded_filter_step(mesh: Mesh, sigma: float, p1: NLKParams, p2: NLKParams,
     """The batched two-pass filter step over a ('dp', 'sp') mesh (JAX
     spatial.py:258-297): ``step(noisy, flt1_prev, flt2_prev, flow, occ) ->
     (flt1, flt2)`` for (B, H, W, C) batches, flow (B, H, W, 2) and occlusion
-    masks (B, H, W) (nonzero = occluded). Each clip's warps run on whole
-    frames on the first device of its batch row; both NLK passes are
-    sharded."""
+    masks (B, H, W) (nonzero = occluded). Each clip's warps run row-sharded
+    over the 'sp' devices of its batch row (K4's shard form on the card,
+    ``parallel/flow.py``); both NLK passes are sharded."""
     def warp(prevs, flow, occ):
         per = prevs.shape[0] // mesh.shape["dp"]
         ws, vs = [], []
         for j in range(prevs.shape[0]):
-            d = mesh.devices[j // per][0]
-            w, v = warp_bicubic_nan(rgb2opp(prevs[j].to(d)), flow[j].to(d), occ[j].to(d),
-                                    engine=engine)
+            k = j // per
+            d = mesh.devices[k][0]
+            w, v = sharded_warp(rgb2opp(prevs[j].to(d)), flow[j].to(d), occ[j].to(d), mesh,
+                                engine, row=k)
             ws.append(torch.where(v[..., None], w, 0.0).to(mesh.first))
             vs.append(v.to(mesh.first))
         return torch.stack(ws), torch.stack(vs)

@@ -8,8 +8,8 @@ color. Backward RTS smoothing then runs in reverse with a forward flow,
 the occlusion mask, a warp and one smoother pass per frame. The JAX
 package's ``lax.scan`` is a Python loop here; the warm-start gate is a
 Python branch (one host sync per frame). Given a ``parallel`` mesh, the
-sequence drivers run every NL-Kalman pass row-sharded over it (flow and
-warps stay whole on the mesh's first device).
+sequence drivers run every NL-Kalman pass, and the flows, occlusion
+masks and warps (``parallel/flow.py``), row-sharded over it.
 
 The causal smoothers run here too: fsmo smooths each frame against the
 previous smoothed frame inside the forward loop, reusing its flow and
@@ -65,27 +65,52 @@ class FlowConfig:
                     zfactor=self.zfactor, nwarps=self.nwarps,
                     epsilon=self.epsilon, max_iters=self.max_iters)
 
-    def flow(self, i0, i1, engine="auto", bases=None):
+    # each with a ``mesh``: row-sharded over it (parallel/flow.py)
+    def flow(self, i0, i1, engine="auto", bases=None, mesh=None):
+        if mesh is not None:
+            from ..parallel.flow import sharded_tvl1_flow  # parallel imports this module
+            return sharded_tvl1_flow(i0, i1, mesh, engine=engine, bases=bases, **self._kw())
         return tvl1_flow(i0, i1, engine=engine, bases=bases, **self._kw())
 
-    def flow_cold_carry(self, i0, i1, engine="auto", bases=None):
+    def flow_cold_carry(self, i0, i1, engine="auto", bases=None, mesh=None):
         """Full-pyramid solve that also returns the warm-start carry."""
+        if mesh is not None:
+            from ..parallel.flow import sharded_tvl1_flow
+            return sharded_tvl1_flow(i0, i1, mesh, return_carry=True, engine=engine,
+                                     bases=bases, **self._kw())
         return tvl1_flow(i0, i1, return_carry=True, engine=engine,
                          bases=bases, **self._kw())
 
-    def flow_warm(self, i0, i1, u_carry, engine="auto", bases=None):
+    def flow_warm(self, i0, i1, u_carry, engine="auto", bases=None, mesh=None):
         """Level-fscale-only solve initialised from the carried flow."""
-        return tvl1_flow_warm(i0, i1, u_carry, warm_nwarps=self.warm_nwarps,
-                              warm_max_iters=self.warm_max_iters,
-                              engine=engine, bases=bases, **self._kw())
+        kw = dict(warm_nwarps=self.warm_nwarps, warm_max_iters=self.warm_max_iters,
+                  engine=engine, bases=bases, **self._kw())
+        if mesh is not None:
+            from ..parallel.flow import sharded_tvl1_flow_warm
+            return sharded_tvl1_flow_warm(i0, i1, u_carry, mesh, **kw)
+        return tvl1_flow_warm(i0, i1, u_carry, **kw)
 
 
-def _occlusion(flow, occ):
+def _occlusion(flow, occ, mesh=None):
     """The (H, W) occlusion mask of a warp along ``flow``: ``occ`` as it is
     where it is a ready mask (a float32 tensor, nonzero = occluded, as the
     training fixtures store it), else the divergence mask of ``flow`` at
-    the threshold ``occ``."""
-    return occ if isinstance(occ, torch.Tensor) else occlusion_mask(flow, occ)
+    the threshold ``occ``, row-sharded over a ``mesh``."""
+    if isinstance(occ, torch.Tensor):
+        return occ
+    if mesh is not None:
+        from ..parallel.flow import sharded_occlusion_mask  # parallel imports this module
+        return sharded_occlusion_mask(flow, mesh, occ)
+    return occlusion_mask(flow, occ)
+
+
+def _warp(im, flow, occl, engine="auto", mesh=None):
+    """``warp_bicubic_nan`` of the (H, W, C) frame ``im``, or with a mesh its
+    row-sharded form (K4's shard form on the card)."""
+    if mesh is None:
+        return warp_bicubic_nan(im, flow, occl, engine=engine)
+    from ..parallel.flow import sharded_warp  # parallel imports this module
+    return sharded_warp(im, flow, occl, mesh, engine)
 
 
 def _filter_pass(nisy, deno0, valid, basic, sigma, prms, mesh=None, **kw):
@@ -111,11 +136,12 @@ def _warp_passes(noisy, prevs, flow, occ, sigma, p1, p2, engine="auto",
     of them ride one warp: same flow, same validity. ``occ`` is the
     occlusion threshold or a ready mask (:func:`_occlusion`). Returns
     (f11, f21) in OPP, the warped priors after the first two (OPP) and the
-    validity. With a ``mesh`` the two passes are row-sharded over it."""
+    validity. With a ``mesh`` the occlusion, the warp and the two passes
+    are row-sharded over it."""
     n_opp = rgb2opp(noisy)
     c = noisy.shape[-1]
-    wt, v1 = warp_bicubic_nan(torch.cat([rgb2opp(p) for p in prevs], dim=-1),
-                              flow, _occlusion(flow, occ), engine=engine)
+    wt, v1 = _warp(torch.cat([rgb2opp(p) for p in prevs], dim=-1), flow,
+                   _occlusion(flow, occ, mesh), engine, mesh)
     kw = dict(engine=engine, bases=bases, window_dtype=window_dtype)
     f11 = _filter_pass(n_opp, wt[..., :c], v1, None, sigma, p1, mesh, **kw)
     f21 = _filter_pass(n_opp, wt[..., c:2 * c], v1, f11, sigma, p2, mesh, **kw)
@@ -150,10 +176,9 @@ def smooth_with_flow(frame_flt2, smo_next, flow, occ, sigma, ps,
                      engine="auto", bases=None, window_dtype="float32", mesh=None):
     """One smoother pass of ``frame_flt2`` against ``smo_next`` warped
     along ``flow`` (RGB in and out); ``occ`` is the occlusion threshold or
-    a ready mask (:func:`_occlusion`). With a ``mesh`` the pass is
-    row-sharded over it."""
-    w0, v0 = warp_bicubic_nan(rgb2opp(smo_next), flow, _occlusion(flow, occ),
-                              engine=engine)
+    a ready mask (:func:`_occlusion`). With a ``mesh`` the occlusion, the
+    warp and the pass are row-sharded over it."""
+    w0, v0 = _warp(rgb2opp(smo_next), flow, _occlusion(flow, occ, mesh), engine, mesh)
     return opp2rgb(_smooth_pass(rgb2opp(frame_flt2), w0, v0, sigma, ps, mesh,
                                 engine=engine, bases=bases,
                                 window_dtype=window_dtype))
@@ -163,7 +188,7 @@ def smooth_pair(frame, nxt, sigma, ps, flow_cfg: FlowConfig, engine="auto",
                 bases=None, window_dtype="float32", mesh=None):
     """:func:`smooth_with_flow` along the cold flow from ``frame`` to
     ``nxt``: a step of the RTS smoother, of lsmo and of the lz3 smoother."""
-    flow = flow_cfg.flow(luma(frame), luma(nxt), engine, bases)
+    flow = flow_cfg.flow(luma(frame), luma(nxt), engine, bases, mesh)
     return smooth_with_flow(frame, nxt, flow, flow_cfg.occ_threshold, sigma,
                             ps, engine, bases, window_dtype, mesh)
 
@@ -179,7 +204,7 @@ def filter_frame_pair(noisy, flt1_prev, flt2_prev, sigma, p1, p2,
         f11 = _filter_pass(n_opp, None, None, None, sigma, p1, mesh, **kw)
         f21 = _filter_pass(n_opp, None, None, f11, sigma, p2, mesh, **kw)
         return opp2rgb(f11), opp2rgb(f21)
-    flow = flow_cfg.flow(luma(noisy), luma(flt2_prev), engine, bases)
+    flow = flow_cfg.flow(luma(noisy), luma(flt2_prev), engine, bases, mesh)
     return _filter_with_flow(noisy, flt1_prev, flt2_prev, flow,
                              flow_cfg.occ_threshold, sigma, p1, p2, engine,
                              bases, window_dtype, mesh)
@@ -193,7 +218,7 @@ def filter_step_warm(frame, carry, sigma, p1, p2, flow_cfg: FlowConfig,
     """
     flt1_prev, flt2_prev, u_c = carry
     flow, u_c = flow_cfg.flow_warm(luma(frame), luma(flt2_prev), u_c, engine,
-                                   bases)
+                                   bases, mesh)
     f11, f21 = _filter_with_flow(frame, flt1_prev, flt2_prev, flow,
                                  flow_cfg.occ_threshold, sigma, p1, p2,
                                  engine, bases, window_dtype, mesh)
@@ -205,7 +230,8 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
                     bases=None, window_dtype="float32", mesh=None):
     """Forward-filter a (T, H, W, C) sequence -> (flt1, flt2) stacks; with
-    a ``mesh`` the NL-Kalman passes are row-sharded over it."""
+    a ``mesh`` the flows, masks, warps and NL-Kalman passes are row-sharded
+    over it."""
     p1 = p1 or default_params(sigma, FilterMode.FLT1)
     p2 = p2 or default_params(sigma, FilterMode.FLT2)
     f11, f21 = filter_frame_pair(noisy[0], None, None, sigma, p1, p2, flow_cfg,
@@ -215,7 +241,7 @@ def filter_sequence(noisy, sigma, p1: NLKParams | None = None,
         # frame 1 is peeled: its flow runs the cold pyramid and seeds the
         # level-fscale carry; every further step warm-starts from it
         flow1, u_fs = flow_cfg.flow_cold_carry(luma(noisy[1]), luma(f21),
-                                               engine, bases)
+                                               engine, bases, mesh)
         f11, f21 = _filter_with_flow(noisy[1], f11, f21, flow1,
                                      flow_cfg.occ_threshold, sigma, p1, p2,
                                      engine, bases, window_dtype, mesh)
@@ -242,7 +268,8 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
                     flow_cfg: FlowConfig = FlowConfig(), engine="auto",
                     bases=None, window_dtype="float32", mesh=None):
     """Backward RTS smoothing of the filtered stack (T, H, W, C) -> smo1;
-    with a ``mesh`` the NL-Kalman passes are row-sharded over it."""
+    with a ``mesh`` the flows, masks, warps and NL-Kalman passes are
+    row-sharded over it."""
     ps = ps or default_params(sigma, FilterMode.SMO1)
     occ_th = flow_cfg.occ_threshold
     n = flt2.shape[0]
@@ -253,12 +280,12 @@ def smooth_sequence(flt2, sigma, ps: NLKParams | None = None,
     if flow_cfg.warm_start:
         # frame T-2 is peeled: the cold pyramid seeds the carry
         flow1, u_c = flow_cfg.flow_cold_carry(luma(flt2[-2]), luma(smo[-1]),
-                                              engine, bases)
+                                              engine, bases, mesh)
         smo[-2] = smooth_with_flow(flt2[-2], smo[-1], flow1, occ_th, sigma, ps,
                                    engine, bases, window_dtype, mesh)
         for t in range(n - 3, -1, -1):
             flow, u_c = flow_cfg.flow_warm(luma(flt2[t]), luma(smo[t + 1]),
-                                           u_c, engine, bases)
+                                           u_c, engine, bases, mesh)
             smo[t] = smooth_with_flow(flt2[t], smo[t + 1], flow, occ_th, sigma,
                                       ps, engine, bases, window_dtype, mesh)
     else:
@@ -352,9 +379,9 @@ def denoise_sequence(noisy, sigma, p1: NLKParams | None = None,
                      bases=None, window_dtype="float32", mesh=None):
     """Two-pass forward filtering + backward smoothing: (flt1, flt2, smo1),
     smo1 None when ``smoothing`` is False. With a ``mesh``
-    (``parallel.make_mesh``) every NL-Kalman pass is row-sharded over its
-    'sp' axis; ``noisy`` then lies on the mesh's first device, where the
-    flow and warps run on whole frames."""
+    (``parallel.make_mesh``) every NL-Kalman pass, flow, occlusion mask
+    and warp is row-sharded over its 'sp' axis; ``noisy`` then lies on the
+    mesh's first device, where whole frames and results live."""
     flt1, flt2 = filter_sequence(noisy, sigma, p1, p2, flow_cfg, engine, bases,
                                  window_dtype, mesh)
     if not smoothing:

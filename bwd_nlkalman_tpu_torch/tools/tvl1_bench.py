@@ -1,5 +1,5 @@
-"""Time K2 and K3, the TV-L1 kernels, on one card, and compare two
-checkouts in turns.
+"""Time K2 and K3, the TV-L1 kernels, and K4's entries on one card, and
+compare two checkouts in turns.
 
     python3 bwd_nlkalman_tpu_torch/tools/tvl1_bench.py [--against DIR]
 
@@ -15,22 +15,26 @@ a 1080p gray pair of a translating scene with noise at sigma=20
 - one K3 block of 24 iterations at 1080x1920 (zero state, the first
   warp stage's constants);
 - the 1080x1920 level of the tiled solver (K4 warps, constants, K3; 5
-  warp stages), as slice 2's finest level.
+  warp stages), as slice 2's finest level;
+- K4's two entries at 1080p on the whole frame: a 2-channel warp with
+  occlusion along a smooth flow, and a 1080x1920 warp stage's constants.
 
 For each: ``ms``, the mean per call between CUDA events over ``REPS``
 calls after a warm-up; ``wall_ms``, the host clock per call around one
 call and a synchronise; ``device_ms``, the device time of one call's
-kernels from torch.profiler (None where it sees none). With ``--against
-DIR`` (another checkout, for example the parent commit unpacked with
-``git archive``) the turns run other, this, this, other, so both are
-timed on the same card. Every
-turn prints one JSON line with the card's name and power limit; the last
-line is the mean per tree. Needs a CUDA device.
+kernels from torch.profiler (None where it sees none); ``digest``, a
+sha256 of the call's outputs' bytes. With ``--against DIR`` (another
+checkout, for example the parent commit unpacked with ``git archive``)
+the turns run other, this, this, other, so both are timed on the same
+card. Every turn prints one JSON line with the card's name and power
+limit; the last line is the mean per tree and ``digests_equal``, whether
+every turn gave the same bits in every case. Needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import subprocess
@@ -56,10 +60,11 @@ def noisy_frames(h, w, frames, sigma=SIGMA, seed=0):
     return clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)
 
 
-def cases(k2_level, k3_block, k3_level):
+def cases(k2_level, k3_block, k3_level, k4_warp, k4_consts):
     """name -> zero-argument call, on the card, from each tree's own
     functions (``tvl1_level_cuda``, ``tvl1_block_cuda``,
-    ``tvl1_single_scale_tiled``)."""
+    ``tvl1_single_scale_tiled``, ``bicubic_warp_cuda``,
+    ``warp_tvl1_consts_cuda``)."""
     import torch
     from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
 
@@ -75,13 +80,30 @@ def cases(k2_level, k3_block, k3_level):
     consts = tvl1_tiled.tvl1_stage_consts(
         torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1), state, a)
     u0 = a.new_zeros(a.shape + (2,))
+    yy, xx = np.mgrid[:FULL[0], :FULL[1]].astype(np.float32)
+    flow = torch.from_numpy(np.stack([2.3 + 1.5 * np.sin(xx / 97.0), -1.7 + np.cos(yy / 61.0)],
+                                     -1).astype(np.float32)).cuda()
+    occ = torch.where(torch.from_numpy((xx + 3 * yy) % 17 == 0).cuda(), 255.0, 0.0)
+    im2 = torch.stack([nz[0], nz[1]], -1).contiguous()
+    i1s = torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1).contiguous()
+    ustate = torch.cat([flow.permute(2, 0, 1), a.new_zeros((4,) + a.shape)]).contiguous()
     return {
         "k2_cold_540x960": lambda: k2_level(h0, h1, zero, nwarps=5, **kw),
         "k2_warm3_540x960": lambda: k2_level(w0, w1, warm, nwarps=3, **kw),
         "k3_block24_1080x1920": lambda: k3_block(state, consts, 24),
         "k3_level_1080x1920": lambda: k3_level(a, b, u0, lambda_=0.25, nwarps=5,
                                                max_iters=300),
+        "k4_warp_c2_1080p": lambda: k4_warp(im2, flow, occ),
+        "k4_consts_1080x1920": lambda: k4_consts(i1s, ustate, a),
     }
+
+
+def digest(out) -> str:
+    """sha256 of the bytes of a call's output tensors."""
+    h = hashlib.sha256()
+    for t in out if isinstance(out, (tuple, list)) else (out,):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
 
 
 def worker(root: str) -> dict:
@@ -92,6 +114,7 @@ def worker(root: str) -> dict:
     from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import tvl1_block_cuda
     from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_cuda
     from bwd_nlkalman_tpu_torch.flow.tvl1_tiled import tvl1_single_scale_tiled
+    from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda, warp_tvl1_consts_cuda
     from bwd_nlkalman_tpu_torch.tools.k1_bench import busy_ms, card, cuda_ms, device_events
     from torch.profiler import ProfilerActivity, profile
 
@@ -99,8 +122,9 @@ def worker(root: str) -> dict:
         raise SystemExit("tvl1_bench: no CUDA device")
     _build.library()
     res = {}
-    for name, fn in cases(tvl1_level_cuda, tvl1_block_cuda,
-                          tvl1_single_scale_tiled).items():
+    for name, fn in cases(tvl1_level_cuda, tvl1_block_cuda, tvl1_single_scale_tiled,
+                          bicubic_warp_cuda, warp_tvl1_consts_cuda).items():
+        dig = digest(fn())
         ms = cuda_ms(fn, REPS)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -112,7 +136,7 @@ def worker(root: str) -> dict:
             torch.cuda.synchronize()
         ev = device_events(prof)
         res[name] = {"ms": ms, "wall_ms": wall,
-                     "device_ms": busy_ms(ev) if ev else None}
+                     "device_ms": busy_ms(ev) if ev else None, "digest": dig}
     return {"root": os.path.relpath(root, ROOT) if root != ROOT else ".",
             "card": card(), "torch": torch.__version__, "cases": res}
 
@@ -141,8 +165,11 @@ def main(argv=None) -> int:
         m = mean.setdefault(run["root"], {})
         for name, c in run["cases"].items():
             m.setdefault(name, []).append(c["ms"])
+    digests = {name: {run["cases"][name]["digest"] for run in runs} for name in runs[0]["cases"]}
     print(json.dumps({"card": runs[0]["card"], "mean_ms": {
-        root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()}}))
+        root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()},
+        "digests": {k: sorted(v) for k, v in digests.items()},
+        "digests_equal": all(len(v) == 1 for v in digests.values())}))
     return 0
 
 

@@ -224,7 +224,8 @@ extern "C" int bnlk_warp_variant_regs(int i, int c) {
   return dispatch(i, c, Args{nullptr, nullptr, nullptr, nullptr, nullptr, 0, 0, nullptr, true});
 }
 
-// Variant i of bnlk_warp (csrc/warp.cu), the same arguments after i.
+// Variant i of bnlk_warp (csrc/warp.cu) on a whole frame: its arguments
+// after i, without the row offset and count.
 extern "C" int bnlk_warp_variant(int i, const void* im, const void* flow, const void* occl,
                                  void* out, void* valid, int h, int w, int c, void* stream) {
   if (h < 1 || w < 1 || ((uintptr_t)im & 7) || ((uintptr_t)flow & 7))

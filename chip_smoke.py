@@ -104,16 +104,36 @@ arguments, one GPU). Phases, each reported on its own line:
    2e-3); the
    sharded 1080p gray flt1 and smo1 passes at sp 1, 2 and 3 on
    ``[cuda:0] * sp``: ms per pass beside the whole-frame pass, the
-   difference from it, K1 launches = sp; ``denoise_sequence_sharded`` on
-   slice 1's clip and flow at sp 2 and 3: frames/s, flt2 and smo1 within
-   0.05 dB of slice 1, K1 = 11 sp, K2 and K4 as in slice 1, profiled
-   (and across cards where more than one is visible; else it says that
-   scaling was not measured); ``denoise_batch`` over dp=2 against the
-   unsharded batch; ``dryrun_multichip(4)``.
+   difference from it, K1 launches = sp; the row-sharded 1080p gray flow
+   (``parallel/flow.py``) at sp 1-4 on ``[cuda:0] * sp``, slice 1's warm
+   fscale=1 step and slice 2's cold fscale=0 flow, against the whole-frame
+   flow: mean EPE <= 1e-4 px and max abs <= 1e-2, the iteration (K2) and
+   block (K3) counts of both, the levels run whole, K2 and K4 launches
+   equal to their formulas, the occlusion masks of both flows differing at
+   no more than 1e-4 of the pixels, K4's shard warps against the
+   whole-frame warp (atol 1e-3, the same masks), and ms per flow, sharded
+   against whole; ``denoise_sequence_sharded`` on slice 1's clip and flow
+   at sp 2 and 3, the flow sharded too: frames/s, flt2 and smo1 within
+   0.05 dB of slice 1, K1 = 11 sp, K2 = the levels run whole + sp x the
+   rounds issued, K3 = 0, K4 = sp x (6 warps + the warm gates + the warp
+   stages of the sharded levels), the levels run whole, profiled with its
+   idle share (and across cards where more than one is visible; else it
+   says that scaling was not measured); ``denoise_batch`` over dp=2
+   against the unsharded batch; ``dryrun_multichip(4)``;
+15. the native io library (``bwd_nlkalman_tpu_torch/native``): built
+   from the checkout with g++, its build seconds and the codecs compiled
+   in (a codec whose header the compiler does not find is left out and
+   named; a source that fails to compile with its headers there fails the
+   run); 1080p RGB round trips of every format it has (PNG 8/16-bit, TIFF,
+   PFM, FLO, JPEG) against the pure-numpy codecs, identical arrays (JPEG
+   against its own decode), ms per frame native and pure; ``FrameLoader``
+   over 8 frames of 1080p (PNG where built, else PFM), frames/s against a
+   loop of ``read_image``; ``nlkalman-seq`` on JPEG frames where libjpeg
+   is built in.
 
 Every phase prints its seconds. Every launch counter is set to 0 just
-before each of the paths 4-7, 9-13 and 14's sharded sequence and read
-just after. The second-to-last line is a JSON object with one entry
+before each of the paths 4-7, 9-13, 14's sharded flows and sharded
+sequence and 15's command and read just after. The second-to-last line is a JSON object with one entry
 per kernel (K1's with a ``variants`` list: each widened case held, with
 its max abs error); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
@@ -1653,8 +1673,10 @@ K1_SHARD_MEAN = 2e-4    # 8.6e-5 at most measured
 def phase_sharded(smi, slice1):
     """14. The row-sharded passes on one card: K1's sharded arguments against
     the plain pass on every shard, the sharded 1080p passes against K1's
-    whole-frame pass and timed, the sharded sequence against slice 1, the
-    batch over dp, and the multichip dry run."""
+    whole-frame pass and timed, the sharded flows against the whole-frame
+    flows and K2's, K3's and K4's shard forms against their plain versions
+    (``sharded_flows``), the sharded sequence against slice 1, the batch
+    over dp, and the multichip dry run."""
     import torch
     from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
     from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
@@ -1663,6 +1685,7 @@ def phase_sharded(smi, slice1):
     from bwd_nlkalman_tpu_torch.parallel import (denoise_sequence_sharded, dryrun_multichip,
                                                  make_mesh, spatial_filter_frame,
                                                  spatial_smooth_frame)
+    from bwd_nlkalman_tpu_torch.parallel.flow import STATS as FLOW_STATS
     from bwd_nlkalman_tpu_torch.parallel.spatial import (_halo_extend, _halo_fold,
                                                          shard_bounds, shard_halo)
     from bwd_nlkalman_tpu_torch.params import FilterMode, default_params
@@ -1814,6 +1837,8 @@ def phase_sharded(smi, slice1):
     del cur, prev, valid, basic
     torch.cuda.empty_cache()
 
+    sharded_flows(smi)
+
     # (c) the sharded sequence on slice 1's clip and flow configuration
     t, (h, w) = 4, FULL
     clean_np, noisy_np = make_clip(h, w, t, SIGMA)
@@ -1836,11 +1861,13 @@ def phase_sharded(smi, slice1):
         torch.cuda.synchronize()
         counters = reset_counters()
         PLAIN_PASSES.reset()
+        FLOW_STATS.reset()
         t0 = time.perf_counter()
         flt1, flt2, smo1 = run()
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         launches = read_counters(counters, f"14 sharded sequence sp={sp}", ("K1", "K2", "K4"))
+        st = FLOW_STATS
         for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
             check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
                   f"sharded {name} is not finite frames of the clip's shape")
@@ -1851,10 +1878,23 @@ def phase_sharded(smi, slice1):
             f"{slice1['psnr'][1]:.4f}; d {d2:+.4f} / {ds:+.4f}, |d| <= 0.05); "
             f"{secs:.3f} s, {t / secs:.3f} frames/s (slice 1 {slice1['fps']:.3f}) ({smi})")
         check(abs(d2) <= 0.05 and abs(ds) <= 0.05, "sharded sequence PSNR off slice 1's")
-        want = {"K1": (3 * t - 1) * sp, "K2": slice1["launches"]["K2"],
-                "K4": slice1["launches"]["K4"]}
+        # every NLK pass a K1 launch a shard; a level solved whole one K2
+        # launch (every level of slice 1's flow takes K2's rule), a sharded
+        # one a K2 launch a shard each round issued; a warp (one a frame
+        # forward and backward), a warm gate and a sharded level's warp
+        # stage a K4 launch a shard
+        want = {"K1": (3 * t - 1) * sp, "K2": len(st.levels_whole) + sp * st.rounds["k2"],
+                "K3": 0, "K4": sp * (2 * (t - 1) + st.gates + st.stages)}
+        log(f"[14 sharded sequence] sp={sp}: flow levels sharded "
+            f"{sorted(set(st.levels_sharded))}, run whole by the small-level rule "
+            f"{sorted(set(st.levels_whole))} ({len(st.levels_whole)} solves); rounds issued "
+            f"{st.rounds['k2']} (K2), warm gates {st.gates}, sharded warp stages {st.stages}; "
+            f"launches "
+            f"{ {k: launches[k] for k in want} } against the formulas {want}")
         check(all(launches[k] == v for k, v in want.items()) and PLAIN_PASSES.count == 0,
               f"sharded sequence launches {launches}, expected {want} and no plain pass")
+        check(st.rounds["k3"] == 0 and st.levels_sharded, "slice 1's sharded flow ran no "
+              "sharded level, or a K3 round")
         profile_slice(run, f"14 sharded sequence sp={sp} profile", smi)
         del flt1, flt2, smo1
         torch.cuda.empty_cache()
@@ -1877,9 +1917,331 @@ def phase_sharded(smi, slice1):
     check(line.startswith("dryrun_multichip OK") and "k1" in line, "dryrun_multichip failed")
 
 
+SHARD_EPE = 1e-4        # the sharded flow against the whole-frame flow: K2_LEVEL_EPE's bar
+SHARD_MAX = 1e-2        # and K2_LEVEL_MAX's
+OCC_SHARE = 1e-4        # share of pixels whose occlusion differs between the two flows
+
+
+def sharded_flows(smi):
+    """14 (e). The row-sharded 1080p gray flow (``parallel/flow.py``) on
+    ``[cuda:0] * sp``, sp 1-4, against the whole-frame flow: slice 1's warm
+    fscale=1 step (the 540x960 level, K2's rule, after the warm gate) and
+    slice 2's cold fscale=0 flow (the 1080x1920 level in K3 blocks, the
+    coarser ones K2): mean EPE and max abs, the iterations (K2's device
+    count) and blocks (K3's) of both, the levels run whole, K2 and K4
+    launches against their formulas, the occlusion masks of both flows,
+    K4's shard warps of a 2-channel frame along the whole flow against
+    the whole-frame warp, and ms per flow (CUDA events, sharded beside
+    whole). Then (f), the shard forms against their plain versions
+    (``shard_kernels``) from the whole flows."""
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.flow.occlusion import occlusion_mask
+    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS
+    from bwd_nlkalman_tpu_torch.ops.bases import make_bases
+    from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp
+    from bwd_nlkalman_tpu_torch.parallel import make_mesh, sharded_occlusion_mask, sharded_warp
+    from bwd_nlkalman_tpu_torch.parallel.flow import STATS
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
+
+    _, noisy = make_clip(*FULL, 3, SIGMA)
+    nz = torch.from_numpy(noisy[..., 0]).cuda()
+    prevs = torch.from_numpy(np.ascontiguousarray(np.moveaxis(noisy[:2, ..., 0], 0, -1))).cuda()
+    warm, cold = FlowConfig(warm_start=True, warm_nwarps=3), FlowConfig(fscale=0)
+    fb = make_bases(tvl1.flow_bases(*FULL), "cuda")    # built once, as the modules hold them
+    _, carry = warm.flow_cold_carry(nz[1], nz[0], bases=fb)
+    cases = {"slice 1 warm fscale=1":
+             lambda m: warm.flow_warm(nz[2], nz[1], carry, bases=fb, mesh=m)[0],
+             "slice 2 cold fscale=0": lambda m: cold.flow(nz[1], nz[0], bases=fb, mesh=m)}
+    flows = []
+    for name, run in cases.items():
+        counters = reset_counters()
+        ITERATIONS.reset()
+        want = run(None)
+        flows.append(want)
+        torch.cuda.synchronize()
+        w_iters, w_blocks = ITERATIONS.count, counters["K3"].count
+        w_ms = cuda_ms(lambda: run(None), 5)
+        occ_w = occlusion_mask(want, 0.75)
+        warp_w, valid_w = bicubic_warp(prevs, want, occ_w)
+        for sp in (1, 2, 3, 4):
+            mesh = make_mesh(1, sp, ["cuda:0"] * sp)
+            counters = reset_counters()
+            ITERATIONS.reset()
+            STATS.reset()
+            got = run(mesh)
+            torch.cuda.synchronize()
+            n = {k: counters[k].count for k in ("K2", "K3", "K4")}
+            iters = ITERATIONS.count
+            # a level run whole is one K2 launch (none takes K3's rule at
+            # 1080p: the 1080x1920 level's shards own 270 rows or more); a
+            # sharded level a K2 launch a shard each round issued; a warp
+            # stage of a sharded level and a warm gate a K4 launch a shard
+            check(all(tvl1.fused_level_supported(*lv) for lv in STATS.levels_whole),
+                  f"sharded flow {name} sp={sp} ran a K3 level whole")
+            formula = {"K2": len(STATS.levels_whole) + sp * STATS.rounds["k2"],
+                       "K4": sp * (STATS.stages + STATS.gates)}
+            epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+            err = max_err(got, want)
+            occ_share = float((sharded_occlusion_mask(got, mesh, 0.75) != occ_w).float().mean())
+            warp_s, valid_s = sharded_warp(prevs, want, occ_w, mesh)
+            warp_err = max_err(warp_s, warp_w)
+            levels = (sorted(set(STATS.levels_sharded)), sorted(set(STATS.levels_whole)))
+            rounds = dict(STATS.rounds)
+            s_ms = cuda_ms(lambda: run(mesh), 5)
+            log(f"[14 sharded flow] 1080p gray {name} sp={sp} on cuda:0 x {sp}: mean EPE "
+                f"{epe:.2e} px (<= {SHARD_EPE:g}), max abs {err:.3e} (<= {SHARD_MAX:g}); "
+                f"iterations K2 {iters} (whole {w_iters}), blocks K3 {n['K3']} (whole "
+                f"{w_blocks}); levels sharded {levels[0]}, run whole {levels[1]}; rounds issued "
+                f"{rounds}; launches K2 "
+                f"{n['K2']} K4 {n['K4']} (formulas {formula}); occlusion differs at "
+                f"{occ_share:.2e} of pixels (<= {OCC_SHARE:g}); K4 shard warps C=2 max abs "
+                f"{warp_err:.3e} (atol 1e-3), masks equal {bool(torch.equal(valid_s, valid_w))}; "
+                f"{s_ms:.3f} ms per flow sharded, {w_ms:.3f} ms whole ({smi})")
+            check(epe <= SHARD_EPE and err <= SHARD_MAX, f"sharded flow {name} sp={sp} off")
+            check(all(n[k] == v for k, v in formula.items()),
+                  f"sharded flow {name} sp={sp}: launches {n}, formulas {formula}")
+            check(occ_share <= OCC_SHARE, f"sharded occlusion {name} sp={sp} differs")
+            check(warp_err <= 1e-3 and torch.equal(valid_s, valid_w),
+                  f"K4 shard warps {name} sp={sp} off the whole-frame warp")
+    shard_kernels(nz, fb, prevs, flows, smi)
+    torch.cuda.empty_cache()
+
+
+SHARD_OWN_ATOL = 2e-3   # a round's owned rows against its plain version (k iterations)
+SHARD_SUM_RTOL = 1e-3   # and the owned rows' sum
+
+
+def _nig_as_grad(cs):
+    """K2's constants with nig = -1/|grad|^2 held as the |grad|^2 it comes
+    from: a small gradient's last bits move its inverse by more than any
+    fixed bar (tests/test_torch_kernels_cuda.py does the same)."""
+    import torch
+
+    return torch.cat([cs[:2], torch.where(cs[2:3] != 0, -1.0 / cs[2:3], 0.0), cs[3:]])
+
+
+def shard_kernels(nz, fb, prevs, flows, smi):
+    """14 (f). The shard forms on the card against their plain versions at
+    the main path's shapes, on every shard of sp 2-4, from a real
+    mid-level state: the level's flow (slice 1's warm flow halved onto the
+    540x960 level, for K2's round of 8; slice 2's cold flow on the
+    1080x1920 level, for K3's round of 24) with the duals of k whole-level
+    plain iterations from it. Per shard, K4's TV-L1 entry on the block
+    (K2's form, nig, and K3's; y0 > 0 but on the first shard) against its
+    plain version (rtol 1e-5, atol 1e-3; nig held as |grad|^2), then the
+    round entry on the block with the kernel's constants against the plain
+    round (owned rows atol SHARD_OWN_ATOL, the owned sum rtol
+    SHARD_SUM_RTOL), and K4's shard warp (C=2, the cold flow and its
+    occlusion) against the plain warp with the same y0 (atol 1e-3, equal
+    masks). Then one launch of each at sp=2's first shard, timed beside the
+    plain version and the bound (each input read once, each output written
+    once)."""
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.flow.occlusion import occlusion_mask
+    from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import tvl1_stage_round_cuda
+    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import tvl1_level_round_cuda
+    from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_round_plain
+    from bwd_nlkalman_tpu_torch.flow.tvl1_tile import RoundCtl
+    from bwd_nlkalman_tpu_torch.flow.tvl1_tiled import (centered_gradient, tvl1_stage_consts,
+                                                        tvl1_stage_round_plain)
+    from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp, bicubic_warp_plain
+    from bwd_nlkalman_tpu_torch.parallel.flow import row_bounds
+
+    a, b = tvl1._prep_pair(nz[1], nz[0], fb)
+    warm, cold = flows
+    rows = {}
+    for name, (img0, img1), u, k, k2 in (
+            ("K2 round of 8, 540x960 level", (tvl1.zoom_out(a, 0.5, fb),
+                                              tvl1.zoom_out(b, 0.5, fb)),
+             0.5 * warm[::2, ::2], 8, True),
+            ("K3 round of 24, 1080x1920 level", (a, b), cold, 24, False)):
+        h, w = img0.shape
+        kern, plain = ((tvl1_level_round_cuda, tvl1_level_round_plain) if k2 else
+                       (tvl1_stage_round_cuda, tvl1_stage_round_plain))
+        i1s = torch.stack([img1, *centered_gradient(img1)], -1)
+        st0 = torch.cat([u.permute(2, 0, 1).contiguous(), img0.new_zeros((4, h, w))])
+        state = plain(st0, tvl1_stage_consts(i1s, st0, img0, "plain", nig=k2), k, 0, h,
+                      (0, 0))[0]
+        errs = {"consts": 0.0, "own": 0.0, "sum": 0.0}
+        for sp in (2, 3, 4):
+            ctl = RoundCtl(sp, a.device, 0.01, h, w)
+            for i, (r0, r1) in enumerate(row_bounds(h, sp)):
+                e0, e1 = max(0, r0 - k), min(h, r1 + k)
+                halo = (r0 - e0, e1 - r1)
+                blk, i0b = state[:, e0:e1].contiguous(), img0[e0:e1].contiguous()
+                cs = tvl1_stage_consts(i1s, blk, i0b, y0=e0, nig=k2)
+                cs_p = tvl1_stage_consts(i1s, blk, i0b, "plain", y0=e0, nig=k2)
+                if k2:
+                    cs_h, cs_ph = _nig_as_grad(cs), _nig_as_grad(cs_p)
+                else:
+                    cs_h, cs_ph = cs, cs_p
+                errs["consts"] = max(errs["consts"], max_err(cs_h, cs_ph))
+                assert_close(f"K4 TV-L1 entry {'nig' if k2 else 'grad'} {h}x{w} sp={sp} "
+                             f"shard {i} (y0 {e0})", cs_h, cs_ph, rtol=1e-5, atol=1e-3)
+                want, want_s = plain(blk, cs, k, e0, h, halo)
+                got = kern(blk.clone(), cs, k, e0, h, halo, ctl, i, 0)
+                own = slice(halo[0], e1 - e0 - halo[1])
+                got_s = float(ctl.sums[0, i])
+                check(float(want_s) > 0.0, f"{name} sp={sp} shard {i}: no update")
+                errs["own"] = max(errs["own"], max_err(got[:, own], want[:, own]))
+                errs["sum"] = max(errs["sum"], abs(got_s - float(want_s)) / float(want_s))
+                assert_close(f"{name} sp={sp} shard {i} owned rows", got[:, own], want[:, own],
+                             rtol=0.0, atol=SHARD_OWN_ATOL)
+                check(abs(got_s - float(want_s)) <= SHARD_SUM_RTOL * float(want_s),
+                      f"{name} sp={sp} shard {i}: sum {got_s} against {float(want_s)}")
+        log(f"[14 shard kernels] {name}, every shard of sp 2-4 from a mid-level state: K4 "
+            f"TV-L1 entry ({'K2' if k2 else 'K3'} form) max abs {errs['consts']:.3e} (rtol "
+            f"1e-5, atol 1e-3), owned rows max abs {errs['own']:.3e} (<= {SHARD_OWN_ATOL:g}), "
+            f"owned sums rel err {errs['sum']:.2e} (<= {SHARD_SUM_RTOL:g})")
+        e1 = h // 2 + k
+        blk, i0b = state[:, :e1].contiguous(), img0[:e1].contiguous()
+        cs = tvl1_stage_consts(i1s, blk, i0b, nig=k2)
+        ctl = RoundCtl(2, a.device, 0.01, h, w)
+        k_ms, p_ms = timed_pair(lambda: kern(blk, cs, k, 0, h, (0, k), ctl, 0, 0),
+                                lambda: plain(blk, cs, k, 0, h, (0, k)), 20, 1)
+        npx = e1 * w
+        rows[name] = (k_ms, p_ms, *bound(k * npx * (K2_FLOPS_ITER if k2 else K3_FLOPS_ITER),
+                                         64 * npx))
+        if k2:
+            k_ms, p_ms = timed_pair(lambda: tvl1_stage_consts(i1s, blk, i0b, nig=True),
+                                    lambda: tvl1_stage_consts(i1s, blk, i0b, "plain", nig=True),
+                                    50, 2)
+            rows[f"K4 TV-L1 entry, K2 form, {e1} rows of {h}x{w}"] = (
+                k_ms, p_ms, *bound(npx * (3 * K4_FLOPS_CH + 8), npx * (8 + 4 + 16) + h * w * 12))
+    h, w = FULL
+    occ = occlusion_mask(cold, 0.75)
+    worst = 0.0
+    for sp in (2, 3, 4):
+        for r0, r1 in row_bounds(h, sp):
+            args = (prevs, cold[r0:r1].contiguous(), occ[r0:r1].contiguous())
+            out, valid = bicubic_warp(*args, y0=r0)
+            ref, ref_valid = bicubic_warp_plain(*args, y0=r0)
+            worst = max(worst, max_err(out, ref))
+            check(torch.equal(valid, ref_valid), f"K4 shard warp sp={sp} rows {r0}: masks")
+            assert_close(f"K4 shard warp sp={sp} rows {r0}..{r1}", out, ref, rtol=0.0,
+                         atol=1e-3)
+    log(f"[14 shard kernels] K4 shard warp C=2 along the cold flow, every shard of sp 2-4: "
+        f"max abs {worst:.3e} (atol 1e-3), masks equal")
+    args = (prevs, cold[:h // 2].contiguous(), occ[:h // 2].contiguous())
+    k_ms, p_ms = timed_pair(lambda: bicubic_warp(*args, y0=0),
+                            lambda: bicubic_warp_plain(*args, y0=0), 50, 2)
+    rows["K4 shard warp C=2, 540 rows of 1080p"] = (k_ms, p_ms,
+                                                    *bound(h // 2 * w * 2 * K4_FLOPS_CH,
+                                                           h // 2 * w * (8 + 8 + 4 + 1)
+                                                           + h * w * 8))
+    for name, (k_ms, p_ms, b_ms, b_by) in rows.items():
+        log(f"[14 shard launches] {name}: {k_ms:.4f} ms between events, plain {p_ms:.3f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by}) ({smi})")
+
+
+def phase_native_io(smi):
+    """15. The native io library: build, codecs, round trips against the
+    pure codecs, times, FrameLoader, and nlkalman-seq on JPEG frames."""
+    import shutil
+    import tempfile
+
+    import torch
+    from bwd_nlkalman_tpu_torch import native
+    from bwd_nlkalman_tpu_torch.cli import nlkalman_seq
+    from bwd_nlkalman_tpu_torch.io import codecs as pure
+
+    native.build()
+    have = native.codecs()
+    missing = [c for c in native.CODECS if c not in have]
+    log(f"[15 native io] {native.lib_path().relative_to(HERE)} built in "
+        f"{native.BUILD_SECONDS:.2f} s with g++; codecs compiled in: "
+        f"{', '.join(have) or 'none'} (pfm and flo always); left out, their header not "
+        f"found by the compiler: {', '.join(native.CODECS[c][0] for c in missing) or 'none'}")
+    rng = np.random.default_rng(15)
+    h, w = FULL
+    rgb = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    cases = {"png8": ("png", ".png", rgb, lambda p, x: native.write_png(p, x, 8)),
+             "png16": ("png", ".png", rgb * 200.0, lambda p, x: native.write_png(p, x, 16)),
+             "tiff": ("tiff", ".tif", rgb, native.write_tiff),
+             "pfm": (None, ".pfm", rgb, native.write_pfm),
+             "flo": (None, ".flo", rgb[..., :2] - 100.0, native.write_flo),
+             "jpeg": ("jpeg", ".jpg", make_clip(h, w, 1, 0.0, channels=3)[0][0],
+                      native.write_jpeg)}
+    d = tempfile.mkdtemp(prefix="bnlk_native_")
+    try:
+        for name, (codec, ext, img, write) in cases.items():
+            if codec is not None and codec not in have:
+                log(f"[15 native io] {name}: not run, {codec} not compiled in")
+                continue
+            p_nat, p_pure = os.path.join(d, "n" + ext), os.path.join(d, "p" + ext)
+            t0 = time.perf_counter()
+            write(p_nat, img)
+            got = native.read_image(p_nat)
+            nat_ms = 1e3 * (time.perf_counter() - t0)
+            if codec == "jpeg":
+                again = native.read_image(p_nat)
+                ok = np.array_equal(got, again) and got.shape == img.shape
+                gain = 10 * np.log10(255.0 ** 2 / np.mean((got - img) ** 2))
+                log(f"[15 native io] jpeg 1080p RGB: decode identical to its own decode "
+                    f"{ok}, PSNR against the input {gain:.2f} dB; native write + read "
+                    f"{nat_ms:.1f} ms (no pure codec)")
+                check(ok, "native jpeg decode differs from itself")
+                continue
+            t0 = time.perf_counter()
+            pure.write_image(p_pure, img, native=False)
+            want = pure.read_image(p_pure, native=False)
+            pure_ms = 1e3 * (time.perf_counter() - t0)
+            cross = (np.array_equal(native.read_image(p_pure), want)
+                     and np.array_equal(pure.read_image(p_nat, native=False), got))
+            same = np.array_equal(got, want) and got.shape == img.shape
+            log(f"[15 native io] {name} 1080p: arrays identical to the pure codec's {same}, "
+                f"each reads the other's file to the same array {cross}; write + read "
+                f"{nat_ms:.1f} ms native, {pure_ms:.1f} ms pure (host, {smi})")
+            check(same and cross, f"native {name} round trip differs from the pure codec")
+        # FrameLoader over 8 frames: PNG where built, else PFM
+        ext = ".png" if "png" in have else ".pfm"
+        pat = os.path.join(d, "f-%03d" + ext)
+        frames = [rng.uniform(0, 255, (h, w, 3)).astype(np.float32) for _ in range(8)]
+        for i, f in enumerate(frames):
+            pure.write_image(pat % (i + 1), f, native=False)
+        t0 = time.perf_counter()
+        loader = native.FrameLoader(pat, 1, 8, nthreads=4, max_queue=8)
+        got = list(loader)
+        loader.close()
+        fl_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        want = [pure.read_image(pat % (i + 1), native=False) for i in range(8)]
+        loop_s = time.perf_counter() - t0
+        same = [i for i, _ in got] == list(range(8)) and all(
+            np.array_equal(a, b) for (_, a), b in zip(got, want))
+        log(f"[15 native io] FrameLoader over 8 frames of 1080p RGB {ext[1:].upper()}: in "
+            f"order and equal to read_image {same}; {8 / fl_s:.1f} frames/s against "
+            f"{8 / loop_s:.1f} for a loop of the pure read_image (4 threads, host)")
+        check(same, "FrameLoader frames differ or came out of order")
+        if "jpeg" not in have:
+            log("[15 native io] nlkalman-seq on JPEG frames: not run, libjpeg not compiled "
+                "in (jpeglib.h not found)")
+            return
+        clean, _ = make_clip(540, 960, 3, SIGMA, channels=3)
+        jpat = os.path.join(d, "c-%03d.jpg")
+        for i in range(3):
+            native.write_jpeg(jpat % (i + 1), clean[i], 95)
+        counters = reset_counters()
+        rc = nlkalman_seq.main([jpat, "1", "3", "20", os.path.join(d, "out"),
+                                "--gt-pattern", jpat])
+        launches = read_counters(counters, "15 nlkalman-seq jpeg", ("K1", "K2", "K4"))
+        meas = open(os.path.join(d, "out", "measures")).read()
+        log(f"[15 native io] nlkalman-seq on 3 JPEG frames of 540x960 RGB: rc {rc}, "
+            f"launches {launches}; measures: " + " | ".join(
+                line for line in meas.splitlines() if "total" in line))
+        check(rc == 0 and "smo1-total" in meas, "nlkalman-seq on JPEG input failed")
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        torch.cuda.synchronize()
+
+
 # the kernels of each, by the start of their names as torch.profiler shows them
 KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
-                "K2": ("level_kernel",), "K3": ("stage_kernel",), "K4": ("warp_tile_kernel",)}
+                "K2": ("level_kernel", "round_kernel<K2Rule"),
+                "K3": ("stage_kernel", "round_kernel<K3Rule"), "K4": ("warp_tile_kernel",)}
 KERNELS = {
     "K1": ("nlk_pass", "bwd_nlkalman_tpu_torch/csrc/nlk_pass.cu",
            "bwd_nlkalman_tpu/core/engine_pallas.py:128"),
@@ -1928,6 +2290,7 @@ def main() -> int:
     timed("12 per-frame commands", phase_cli_frame, smi)
     timed("13 search", phase_search, smi)
     timed("14 sharded", phase_sharded, smi, slice1)
+    timed("15 native io", phase_native_io, smi)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)

@@ -415,3 +415,119 @@ def test_sharded_frame_passes_on_one_card(dev):
     got = spatial_smooth_frame(cur, prev, valid, 20.0, ps, mesh)
     torch.testing.assert_close(got, nlkalman_smooth_frame(cur, prev, valid, 20.0, ps),
                                rtol=1e-4, atol=2e-3)
+
+
+@pytest.mark.parametrize("rule", ["k2", "k3"])
+@pytest.mark.parametrize("k", [4, 8, 10, 24])
+@pytest.mark.parametrize("sp", [1, 2, 3])
+def test_tvl1_round_kernels_match_plain(dev, sp, k, rule):
+    """K2's and K3's round entries on every shard's row block of a 270x480
+    level (halo k rows, border rules at the level's edges only) against
+    their plain versions from the same mid-level state: the owned rows
+    within 2e-3 (k iterations, as the blocks of the JAX suite's bar; the
+    halo rows are the neighbours' to fill), the owned rows' sum (the
+    shard's slot) within rtol 1e-3, the device count once per running
+    round. The stop-or-go as ``RoundCtl.go`` takes it: a later round whose
+    previous sums are under epsilon squared runs nothing and clears the
+    flag, which keeps the next round from running even above the bar,
+    until a round 0 sets it again."""
+    from bwd_nlkalman_tpu_torch.flow.tvl1_tile import RoundCtl
+    from bwd_nlkalman_tpu_torch.parallel.flow import row_bounds
+
+    rng = np.random.default_rng(13)
+    h, w = 270, 480
+    state = _t(rng.normal(0, 0.5, (6, h, w)).astype(np.float32), dev)
+    consts = _t(rng.normal(0, 1, (4, h, w)).astype(np.float32), dev)
+    g = consts[0] ** 2 + consts[1] ** 2
+    is_k2 = rule == "k2"
+    consts[2] = -1.0 / g if is_k2 else g
+    kernel = k2.tvl1_level_round_cuda if is_k2 else k3.tvl1_stage_round_cuda
+    plain = tvl1_fused.tvl1_level_round_plain if is_k2 else tvl1_tiled.tvl1_stage_round_plain
+    counter = k2.ITERATIONS if is_k2 else k3.LAUNCHES
+    count = k if is_k2 else 1
+    ctl = RoundCtl(sp, dev, 0.01, h, w)
+    for i, (r0, r1) in enumerate(row_bounds(h, sp)):
+        e0, e1 = max(0, r0 - k), min(h, r1 + k)
+        halo = (r0 - e0, e1 - r1)
+        blk, cs = state[:, e0:e1].contiguous(), consts[:, e0:e1].contiguous()
+        want, want_s = plain(blk, cs, k, e0, h, halo)
+        counter.reset()
+        got = kernel(blk.clone(), cs, k, e0, h, halo, ctl, i, 0, count=True)
+        assert counter.count == count and int(ctl.flag) == 1
+        own = slice(halo[0], e1 - e0 - halo[1])
+        torch.testing.assert_close(got[:, own], want[:, own], rtol=0.0, atol=2e-3)
+        torch.testing.assert_close(ctl.sums[0, i], want_s, rtol=1e-3, atol=0.0)
+    small = float(np.float32(0.01 * 0.01)) * h * w / (2 * sp)
+    for r, prev, runs in ((1, small, False), (2, 1e6, False), (0, 0.0, True)):
+        ctl.sums[(r - 1) % 2] = prev
+        counter.reset()
+        got = kernel(blk.clone(), cs, k, e0, h, halo, ctl, sp - 1, r, count=True)
+        assert torch.equal(got, blk) != runs and int(ctl.flag) == int(runs)
+        assert counter.count == (count if runs else 0)
+
+
+@pytest.mark.parametrize("nig", [False, True])
+@pytest.mark.parametrize("c", [1, 2, 3, 9])
+@pytest.mark.parametrize("sp", [1, 2, 3])
+def test_warp_kernel_row_offset_matches_plain(dev, sp, c, nig):
+    """K4's shard form: each shard's rows of the warp (from the whole
+    source) and of the TV-L1 entry's constants (K3's and K2's form), on a
+    270x480 frame with a band of flow, against the plain versions with the
+    same row offset, at test_warp_kernel_matches_plain's bar (K2's nig
+    through the |grad|^2 it inverts: a small gradient's last bits move its
+    inverse by more); and the row blocks of the kernel against its whole
+    frame, equal."""
+    from bwd_nlkalman_tpu_torch.parallel.flow import row_bounds
+
+    rng = np.random.default_rng(c + 20)
+    h, w = 270, 480
+    im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
+    flow = _t(noisy_flow(rng, h, w, True), dev)
+    oc = _t(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0).astype(np.float32), dev)
+    # the TV-L1 entry on a level's smooth image, its gradients and a flow of
+    # a few pixels (a band of hundreds of pixels makes rho_c's products
+    # large enough that their last bits exceed any fixed bar)
+    base = np.cumsum(np.cumsum(rng.normal(size=(h, w)), 0), 1)
+    i1 = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
+    i1s = _t(np.stack([i1, *np.gradient(i1, axis=(1, 0))], -1).astype(np.float32), dev)
+    state = torch.cat([_t(noisy_flow(rng, h, w, False), dev).permute(2, 0, 1),
+                       torch.zeros((4, h, w), device=dev)])
+    i0 = _t(np.roll(i1, 2, axis=1), dev)
+    whole, whole_v = bicubic_warp_cuda(im, flow, oc)
+    whole_cs = warp_cuda.warp_tvl1_consts_cuda(i1s, state, i0, nig=nig)
+    for r0, r1 in row_bounds(h, sp):
+        out, valid = bicubic_warp_cuda(im, flow[r0:r1].contiguous(), oc[r0:r1].contiguous(), r0)
+        ref, ref_valid = bicubic_warp_plain(im, flow[r0:r1], oc[r0:r1], r0)
+        assert torch.equal(valid, ref_valid) and torch.equal(valid, whole_v[r0:r1])
+        torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
+        assert torch.equal(out, whole[r0:r1])
+        blk = state[:, r0:r1].contiguous()
+        cs = warp_cuda.warp_tvl1_consts_cuda(i1s, blk, i0[r0:r1].contiguous(), r0, nig)
+        ref_cs = tvl1_tiled.tvl1_stage_consts_plain(i1s, blk, i0[r0:r1], r0, nig)
+        assert torch.equal(cs, whole_cs[:, r0:r1])
+        if nig:  # K2's nig = -1/|grad|^2 held as the |grad|^2 it comes from
+            cs, ref_cs = (torch.cat([c[:2], torch.where(c[2:3] != 0, -1.0 / c[2:3], 0.0), c[3:]])
+                          for c in (cs, ref_cs))
+        torch.testing.assert_close(cs, ref_cs, rtol=1e-5, atol=1e-3)
+
+
+def test_sharded_flow_on_one_card(dev):
+    """The row-sharded flow on ``[cuda:0] * sp`` (K2 rounds on the 270x480
+    level of a 540x960 pair, K4's shard form) against the whole-frame
+    flow: mean end-point error within 1e-4 px, max abs within 1e-2."""
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.parallel import make_mesh, sharded_tvl1_flow
+
+    rng = np.random.default_rng(4)
+    h, w = 540, 960
+    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
+    i0, i1 = _t(base[4:4 + h, 4:4 + w], dev), _t(base[5:5 + h, 6:6 + w], dev)
+    want = tvl1.tvl1_flow(i0, i1, fscale=1, lambda_=0.25)
+    for sp in (2, 3):
+        k2.LAUNCHES.reset()
+        got = sharded_tvl1_flow(i0, i1, make_mesh(1, sp, ["cuda:0"] * sp), fscale=1,
+                                lambda_=0.25)
+        assert k2.LAUNCHES.count > 0
+        epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+        assert epe <= 1e-4 and float((got - want).abs().max()) <= 1e-2

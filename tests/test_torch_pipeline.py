@@ -156,12 +156,14 @@ def test_unknown_engine_raises(call):
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A CPU run of the modules, of a streaming step, of a multiscale call
-    and of the CLIs loads neither JAX nor any module of the JAX package."""
+    """A CPU run of the modules, of a streaming step, of a multiscale call,
+    of the row-sharded flow and of the CLIs, with the native io module
+    loaded, loads neither JAX nor any module of the JAX package."""
     code = (
         "import sys, numpy as np, torch\n"
         "import bwd_nlkalman_tpu_torch as P\n"
-        "from bwd_nlkalman_tpu_torch import convert, models\n"
+        "from bwd_nlkalman_tpu_torch import convert, models, native, parallel\n"
+        "from bwd_nlkalman_tpu_torch.parallel import flow as pflow\n"
         "from bwd_nlkalman_tpu_torch.cli import (msnlkalman_lz3_seq, msnlkalman_seq,"
         " nlkalman_seq, tvl1flow)\n"
         "from bwd_nlkalman_tpu_torch.io import write_png\n"
@@ -177,6 +179,12 @@ def test_port_never_imports_jax(tmp_path):
         "out = P.MultiscaleDenoiser(20.0, 24, 32, levels=2, pyramid='lz3', device='cpu')(x)\n"
         "assert all(torch.isfinite(o).all() for o in out)\n"
         "assert set(P.kernel_counters()) == {'K1', 'K2', 'K3', 'K4', 'K4c9', 'P'}\n"
+        "m = parallel.make_mesh(1, 2, ['cpu'] * 2)\n"
+        "y = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (2, 48, 32))"
+        ".astype(np.float32))\n"
+        "u = parallel.sharded_tvl1_flow(y[0], y[1], m, fscale=0)\n"
+        "assert u.shape == (48, 32, 2) and torch.isfinite(u).all() and pflow.STATS.rounds['k2']\n"
+        "assert callable(native.build) and callable(native.FrameLoader)\n"
         "d = sys.argv[1]\n"
         "for i in range(2):\n"
         "    write_png(f'{d}/f-{i}.png', x[i].numpy())\n"
