@@ -26,6 +26,7 @@ JAX package.
 
 __version__ = "0.1.0"
 
+from . import params as params  # noqa: F401
 from .params import FilterMode, NLKParams, default_params  # noqa: F401
 from .pipeline import (FlowConfig, MultiscaleDenoiser, NLKalmanDenoiser,  # noqa: F401
                        StreamingDenoiser, denoise_sequence)

@@ -39,9 +39,9 @@ SIGNATURES = {
     "bnlk_warp": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bnlk_warp_tvl1_consts": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     "bnlk_tvl1_level": [_P, _P, _P, _P, _P, _I, _I, _I, _D, _F, _D, _D, _I, _I,
-                        _I, _I, _I, _I, _P, _P],
+                        _I, _I, _I, _I, _P, _I, _P],
     "bnlk_tvl1_level_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                              _I, _I, _I, _D, _D, _F, _D, _I, _I, _I, _I, _P],
+                              _I, _I, _I, _D, _D, _F, _D, _I, _I, _I, _I, _I, _P],
     "bnlk_tvl1_stage_round": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                               _I, _I, _I, _D, _D, _D, _D, _I, _I, _I, _I, _P],
     "bnlk_tvl1_stage": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _D, _D, _D,

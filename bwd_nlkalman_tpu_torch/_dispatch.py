@@ -13,6 +13,7 @@ import torch
 
 ENGINES = ("auto", "plain")
 WINDOW_DTYPES = ("float32", "bfloat16")
+STATE_DTYPES = ("float32", "bfloat16")
 
 
 def check_engine(engine: str) -> None:
@@ -27,6 +28,14 @@ def check_window_dtype(window_dtype: str) -> None:
     if window_dtype not in WINDOW_DTYPES:
         raise ValueError(f"window_dtype must be one of {WINDOW_DTYPES}, "
                          f"got {window_dtype!r}")
+
+
+def check_state_dtype(state_dtype: str) -> None:
+    """Raise unless ``state_dtype`` is "float32" or "bfloat16": the type
+    K2 holds its TV-L1 dual planes in."""
+    if state_dtype not in STATE_DTYPES:
+        raise ValueError(f"state_dtype must be one of {STATE_DTYPES}, "
+                         f"got {state_dtype!r}")
 
 
 def entry_device(device, who: str) -> torch.device:

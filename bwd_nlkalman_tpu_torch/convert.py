@@ -27,10 +27,15 @@ def params_from_jax(p) -> NLKParams:
                         for f in dataclasses.fields(NLKParams)})
 
 
-def flow_config_from_jax(cfg) -> FlowConfig:
-    """The port's FlowConfig with the same field values as a JAX FlowConfig."""
-    return FlowConfig(**{f.name: getattr(cfg, f.name)
-                         for f in dataclasses.fields(FlowConfig)})
+def flow_config_from_jax(cfg, state_dtype: str = "float32") -> FlowConfig:
+    """The port's FlowConfig with the same field values as a JAX FlowConfig.
+
+    The JAX FlowConfig has no ``state_dtype``: the JAX package reads it from
+    ``BNLK_TVL1_STATE_DTYPE``. A caller that ran JAX with it set passes it
+    here."""
+    return FlowConfig(state_dtype=state_dtype,
+                      **{f.name: getattr(cfg, f.name)
+                         for f in dataclasses.fields(FlowConfig) if f.name != "state_dtype"})
 
 
 def carry_from_numpy(flt1_prev, flt2_prev, u_fs, device):

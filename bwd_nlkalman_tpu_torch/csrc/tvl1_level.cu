@@ -26,7 +26,12 @@
 // 236-242); dual planes zero at the last column / row with the divergence
 // that follows (:89-103, 243-253); the error over in-frame pixels on the
 // last iteration of each round only (:268-285); the count rising in whole
-// rounds of k_check.
+// rounds of k_check. With bf16_duals, K2's state_dtype="bfloat16"
+// (tvl1_fused.py:276, 285, 378): the dual planes are rounded to bfloat16 as
+// each iteration stores them (K2RuleBf16), one more instance of each
+// kernel; u, the constants and the arithmetic stay float32, each
+// operation rounded on its own as the plain version's, the warp stage's
+// constants too, so that a level gives the plain level's bits.
 //
 // No host read or stream synchronisation inside the level: the number of
 // iterations run is added to a device counter.
@@ -58,7 +63,7 @@ struct LevelArgs {
   int* iters;           // device counter: += iterations run over all warp stages
 };
 
-template <int KT>
+template <class Rule, int KT>
 __global__ void __launch_bounds__(kTileThreads, 1) level_kernel(LevelArgs a) {
   cg::grid_group grid = cg::this_grid();
   const int h = a.L.h, w = a.L.w;
@@ -88,12 +93,12 @@ __global__ void __launch_bounds__(kTileThreads, 1) level_kernel(LevelArgs a) {
       const int y = (int)(i / w), x = (int)(i % w);
       const float u1 = __ldcg(u + i), u2 = __ldcg(u + n + i);
       float s[3];
-      bnlk_bicubic_at(i1s, h, w, 3, (float)x + u1, (float)y + u2, s);
-      bnlk_k2_consts(s[0], s[1], s[2], u1, u2, a.i0[i], cs + i, n);
+      bnlk_bicubic_at<Rule::kSeparateOps>(i1s, h, w, 3, (float)x + u1, (float)y + u2, s);
+      bnlk_k2_consts<Rule::kSeparateOps>(s[0], s[1], s[2], u1, u2, a.i0[i], cs + i, n);
     }
     grid.sync();
-    total += solve_stage<K2Rule, KT>(a.L, sb, cur, cs, a.k_check, a.max_iters,
-                                     a.eps2, (float)n, partials, parity, nullptr);
+    total += solve_stage<Rule, KT>(a.L, sb, cur, cs, a.k_check, a.max_iters,
+                                   a.eps2, (float)n, partials, parity, nullptr);
   }
   for (size_t i = t0; i < n; i += stride) {
     a.u[2 * i] = __ldcg(sb[cur] + i);
@@ -109,13 +114,14 @@ __global__ void __launch_bounds__(kTileThreads, 1) level_kernel(LevelArgs a) {
 // kt is the tile depth, rows the region's rows and tiles_y x tiles_x the
 // tile grid the caller planned (flow/tvl1_tile.py::tile_plan); iters is a
 // device int that receives += the iterations run over all warp stages.
+// bf16_duals (0 or 1) selects the bfloat16 dual planes.
 extern "C" int bnlk_tvl1_level(const void* i0, const void* i1,
                                const void* u_init, void* u, void* scratch,
                                int h, int w, int nwarps,
                                double tau, float lambda, double theta,
                                double epsilon, int k_check, int max_iters,
                                int kt, int rows, int tiles_y,
-                               int tiles_x, void* iters,
+                               int tiles_x, void* iters, int bf16_duals,
                                void* stream) {
   if (h < 1 || w < 1 || nwarps < 0 || k_check < 1) return (int)cudaErrorInvalidValue;
   LevelArgs a;
@@ -134,8 +140,10 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1,
   a.eps2 = (float)(epsilon * epsilon);
   a.iters = (int*)iters;
   cudaStream_t st = (cudaStream_t)stream;
-  if (kt != kTileDepth || !tile_plan_ok<kTileDepth>(a.L)) return (int)cudaErrorInvalidValue;
-  return launch_tiles(level_kernel<kTileDepth>, &a, a.L, st);
+  if (kt != kTileDepth || !tile_plan_ok<kTileDepth>(a.L) || (bf16_duals & ~1))
+    return (int)cudaErrorInvalidValue;
+  return bf16_duals ? launch_tiles(level_kernel<K2RuleBf16, kTileDepth>, &a, a.L, st)
+                    : launch_tiles(level_kernel<K2Rule, kTileDepth>, &a, a.L, st);
 }
 
 // One round of k iterations under K2Rule on a row block (the shard form):
@@ -147,16 +155,18 @@ extern "C" int bnlk_tvl1_level(const void* i0, const void* i1,
 // int stop-or-go, which round 0 sets and a later round clears (running
 // nothing) where the previous round's sums / (h * w) <= epsilon^2
 // (tvl1_tile.cuh, round_go); iters (or null): a device int that receives
-// += k when the round runs. The plan is tile_plan(hb, w).
+// += k when the round runs; bf16_duals (0 or 1) the bfloat16 dual planes.
+// The plan is tile_plan(hb, w).
 extern "C" int bnlk_tvl1_level_round(void* state, const void* consts, void* tmp,
                                      void* partials, void* sums, void* flag, void* iters,
                                      int h, int w, int hb, int y0, int own0,
                                      int own1, int k, int slot, int n_sums, int round,
                                      double epsilon, double tau, float lambda,
                                      double theta, int kt, int rows, int tiles_y,
-                                     int tiles_x, void* stream) {
-  return launch_round<K2Rule>(state, consts, tmp, partials, sums, flag, iters, k, h, w, hb,
-                              y0, own0, own1, k, slot, n_sums, round, epsilon,
-                              lambda * (float)theta, (float)theta, (float)(tau / theta), kt,
-                              rows, tiles_y, tiles_x, (cudaStream_t)stream);
+                                     int tiles_x, int bf16_duals, void* stream) {
+  if (bf16_duals & ~1) return (int)cudaErrorInvalidValue;
+  auto launch = bf16_duals ? &launch_round<K2RuleBf16> : &launch_round<K2Rule>;
+  return launch(state, consts, tmp, partials, sums, flag, iters, k, h, w, hb, y0, own0, own1,
+                k, slot, n_sums, round, epsilon, lambda * (float)theta, (float)theta,
+                (float)(tau / theta), kt, rows, tiles_y, tiles_x, (cudaStream_t)stream);
 }

@@ -53,6 +53,19 @@
 // form with lo / hi masks and the reference's divergence at the first and
 // last row and column (bwd_nlkalman_tpu/flow/tvl1_pallas.py:100-143). Both
 // keep IEEE divisions and square roots, as their plain versions do.
+// K2RuleBf16 is K2's state_dtype="bfloat16" (tvl1_fused.py:276, 285): each
+// new dual is rounded to bfloat16 (to nearest, ties to even) and widened
+// back as it is stored, so the duals hold bf16 values while u, the
+// constants and all arithmetic stay float32. A float32 result one ulp off
+// the plain version's can round to the other bfloat16 neighbour, a step
+// 2^16 ulps wide that the next iterations spread; so this rule computes
+// every product and sum on its own with the round-to-nearest intrinsics
+// (no contraction into an FMA), in the plain version's order
+// (flow/tvl1_fused.py::_one_iter): given the same constants, a round gives
+// the plain round's bits, and K2's level kernel computes the constants so
+// too (bicubic.cuh), so that a whole level gives the plain level's. The
+// rule is a template policy, not a runtime branch: K2Rule's and K3Rule's
+// instances are unchanged.
 //
 // What likely bounds it on the card (no kernel profiler runs there):
 // instruction issue. A pixel iteration compiles to about 100 (K2) to 150
@@ -64,6 +77,7 @@
 #pragma once
 
 #include <cooperative_groups.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "block_sum.cuh"
@@ -107,8 +121,22 @@ __host__ inline void tile_block(TileLevel& L, int h, int w, int rows, int tiles_
   L.own1 = own1;
 }
 
+// The primal update v + theta * (dx + dy) and |grad u| of the iteration,
+// as the compiler contracts them (K2Rule, K3Rule); kSeparateOps: whether
+// the rule rounds every operation on its own (K2's level kernel then
+// computes its constants so too, bicubic.cuh).
+struct ContractedSteps {
+  static constexpr bool kSeparateOps = false;
+  __device__ __forceinline__ static float primal(float v, float theta, float dx, float dy) {
+    return v + theta * (dx + dy);
+  }
+  __device__ __forceinline__ static float norm(float ux, float uy) {
+    return sqrtf(ux * ux + uy * uy);
+  }
+};
+
 // K2: constants (x, y, z, w) = (i1wx, i1wy, nig = guarded -1/|grad|^2, rho_c).
-struct K2Rule {
+struct K2Rule : ContractedSteps {
   __device__ __forceinline__ static void threshold(float4 c, float u1, float u2,
                                                    float l_t, float* v) {
     const float rho = c.w + c.x * u1 + c.y * u2;
@@ -129,8 +157,34 @@ struct K2Rule {
   }
 };
 
+// K2 with bfloat16 dual planes: K2Rule's steps, each operation rounded on
+// its own as the plain version's tensor operations are, and every stored
+// dual rounded to bfloat16.
+struct K2RuleBf16 : K2Rule {
+  static constexpr bool kSeparateOps = true;
+  __device__ __forceinline__ static void threshold(float4 c, float u1, float u2,
+                                                   float l_t, float* v) {
+    const float rho = __fadd_rn(__fadd_rn(c.w, __fmul_rn(c.x, u1)), __fmul_rn(c.y, u2));
+    const float fi = fminf(fmaxf(__fmul_rn(rho, c.z), -l_t), l_t);
+    v[0] = __fadd_rn(u1, __fmul_rn(fi, c.x));
+    v[1] = __fadd_rn(u2, __fmul_rn(fi, c.y));
+  }
+  __device__ __forceinline__ static float primal(float v, float theta, float dx, float dy) {
+    return __fadd_rn(v, __fmul_rn(theta, __fadd_rn(dx, dy)));
+  }
+  __device__ __forceinline__ static float norm(float ux, float uy) {
+    return __fsqrt_rn(__fadd_rn(__fmul_rn(ux, ux), __fmul_rn(uy, uy)));
+  }
+  __device__ __forceinline__ static float scale(float taut, float g) {
+    return __fdiv_rn(1.0f, __fadd_rn(1.0f, __fmul_rn(taut, g)));
+  }
+  __device__ __forceinline__ static float dual(float p, float d, float taut, float s) {
+    return __bfloat162float(__float2bfloat16_rn(__fmul_rn(__fadd_rn(p, __fmul_rn(taut, d)), s)));
+  }
+};
+
 // K3: constants (x, y, z, w) = (i1wx, i1wy, grad = |grad|^2, rho_c).
-struct K3Rule {
+struct K3Rule : ContractedSteps {
   __device__ __forceinline__ static void threshold(float4 c, float u1, float u2,
                                                    float l_t, float* v) {
     const float grad = c.z;
@@ -201,7 +255,7 @@ __device__ __forceinline__ float iterate(const TileLevel& L, int gy0, int gx,
         const float* pb = sm + (3 + 2 * q) * plane;  // p12 / p22
         const float dx = Rule::diff(pa[s], pa[s - 1], gx, L.w);
         const float dy = Rule::diff(pb[s], pb[s - kTileCols], gy, L.h);
-        un[q] = v[q] + L.theta * (dx + dy);
+        un[q] = Rule::primal(v[q], L.theta, dx, dy);
       }
       const int by = gy - L.y0;
       if (last && own_x && r >= KT && r < KT + th && by >= L.own0 && by < L.own1) {
@@ -225,7 +279,7 @@ __device__ __forceinline__ float iterate(const TileLevel& L, int gy0, int gx,
         const float* u = sm + q * plane;
         const float ux = has_r ? u[s + 1] - u[s] : 0.0f;
         const float uy = has_d ? u[s + kTileCols] - u[s] : 0.0f;
-        const float f = Rule::scale(L.taut, sqrtf(ux * ux + uy * uy));
+        const float f = Rule::scale(L.taut, Rule::norm(ux, uy));
         float* pa = sm + (2 + 2 * q) * plane;
         float* pb = sm + (3 + 2 * q) * plane;
         pa[s] = Rule::dual(pa[s], ux, L.taut, f);

@@ -50,7 +50,9 @@
 //   (12 launches and 0.198 ms of device time a 1080x1920 warp stage); in
 //   K2's form (kConsts == 2) the third plane is nig = -1 / |grad|^2, zero
 //   where |grad|^2 < 1e-10, as K2's threshold step takes it, every plane
-//   from K2's own function (bnlk_k2_consts, bicubic.cuh);
+//   from K2's own function (bnlk_k2_consts, bicubic.cuh); kConsts == 3 is
+//   K2's form for its bfloat16 rule, the sample and the constants rounded
+//   operation by operation as that rule's level kernel computes them;
 // - the shard form (parallel/flow.py): both entries write the rows y0 ..
 //   y0 + hb - 1 of an h-row frame, so the flow, occlusion, state, i0 and
 //   outputs hold hb rows while the source holds the whole frame (the
@@ -80,7 +82,8 @@ constexpr int min_blocks() {
   return C >= 1 && C <= 3 ? 16 : 4;
 }
 
-// kConsts: 1 or 2, the TV-L1 entry (C == 3) in K3's or K2's form: flow
+// kConsts: 1, 2 or 3, the TV-L1 entry (C == 3) in K3's form, K2's, or
+// K2's for its bfloat16 rule (every operation rounded on its own): flow
 // from the planar state, the constants written planar; 0 the warp:
 // interleaved flow in, out and the bool mask written. Output rows are the
 // frame's rows y0 .. y0 + hb - 1; the source im holds all h rows.
@@ -112,7 +115,8 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
     }
     const bool live = kConsts != 0 || aux == nullptr || aux[idx] == 0.0f;
     float res[CA];
-    const bool ok = k4_sample<C, CA>((float)x + u, (float)y + v, h, w, c, live, taps, res);
+    const bool ok = k4_sample<C, CA, kConsts == 3>((float)x + u, (float)y + v, h, w, c, live,
+                                                   taps, res);
     if constexpr (kConsts == 1) {
       // the eager composition's order and rounding, no contraction
       const float gx = res[1], gy = res[2];
@@ -121,9 +125,9 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
       out[2 * hw + idx] = __fadd_rn(__fmul_rn(gx, gx), __fmul_rn(gy, gy));
       out[3 * hw + idx] = __fsub_rn(
           __fsub_rn(__fsub_rn(res[0], __fmul_rn(gx, u)), __fmul_rn(gy, v)), aux[idx]);
-    } else if constexpr (kConsts == 2) {
+    } else if constexpr (kConsts >= 2) {
       // K2's own constants (bicubic.cuh), rounded as its level kernel's
-      bnlk_k2_consts(res[0], res[1], res[2], u, v, aux[idx], out + idx, hw);
+      bnlk_k2_consts<kConsts == 3>(res[0], res[1], res[2], u, v, aux[idx], out + idx, hw);
     } else {
       float* o = out + idx * c;
       if constexpr (C > 0 && C % 2 == 0) {
@@ -184,14 +188,21 @@ extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
 
 // i1s (H, W, 3) = (I1, I1x, I1y), state (6, hb, W) whose planes 0 and 1
 // are u1 and u2, i0 (hb, W), for the frame's rows y0 .. y0 + hb - 1;
-// writes consts (4, hb, W): K3's form (nig = 0) or K2's (nig = 1).
+// writes consts (4, hb, W): K3's form (nig = 0), K2's (nig = 1) or K2's for
+// its bfloat16 rule (nig = 2).
 extern "C" int bnlk_warp_tvl1_consts(const void* i1s, const void* state,
                                      const void* i0, void* consts, int h, int w,
                                      int y0, int hb, int nig, void* stream) {
-  if (bad_args(i1s, state, h, w, y0, hb)) return (int)cudaErrorInvalidValue;
+  if (bad_args(i1s, state, h, w, y0, hb) || nig < 0 || nig > 2)
+    return (int)cudaErrorInvalidValue;
   const auto* i = (const float*)i1s;
   const auto* st = (const float*)state;
+  const auto* a = (const float*)i0;
+  auto* o = (float*)consts;
   auto s = (cudaStream_t)stream;
-  return nig ? launch<3, 2>(i, st, (const float*)i0, (float*)consts, nullptr, h, w, 3, y0, hb, s)
-             : launch<3, 1>(i, st, (const float*)i0, (float*)consts, nullptr, h, w, 3, y0, hb, s);
+  switch (nig) {
+    case 0: return launch<3, 1>(i, st, a, o, nullptr, h, w, 3, y0, hb, s);
+    case 1: return launch<3, 2>(i, st, a, o, nullptr, h, w, 3, y0, hb, s);
+    default: return launch<3, 3>(i, st, a, o, nullptr, h, w, 3, y0, hb, s);
+  }
 }

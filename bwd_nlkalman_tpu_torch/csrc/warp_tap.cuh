@@ -38,8 +38,9 @@ __device__ __forceinline__ void k4_load_px(const float* __restrict__ p, int c,
 // first, then the x-cubic. taps(by, bx) gives the footprint whose top-left
 // pixel is (bx, by) as a load tap(k, i, v) of the channels of pixel
 // (bx + i, by + k) into v. Valid where `live` and the footprint lies in
-// the frame; elsewhere res is 0 and no tap is read.
-template <int C, int CA, typename Taps>
+// the frame; elsewhere res is 0 and no tap is read. kSeparate: the cubics
+// rounded as the plain version's (bicubic.cuh).
+template <int C, int CA, bool kSeparate = false, typename Taps>
 __device__ __forceinline__ bool k4_sample(float cx, float cy, int h, int w,
                                           int c, bool live, Taps taps,
                                           float (&res)[CA]) {
@@ -59,12 +60,13 @@ __device__ __forceinline__ bool k4_sample(float cx, float cy, int h, int w,
 #pragma unroll
       for (int ch = 0; ch < CA; ++ch)
         if (C > 0 || ch < c)
-          cols[i][ch] = bnlk_cubic(t[0][ch], t[1][ch], t[2][ch], t[3][ch], fy);
+          cols[i][ch] = bnlk_cubic_as<kSeparate>(t[0][ch], t[1][ch], t[2][ch], t[3][ch], fy);
     }
 #pragma unroll
     for (int ch = 0; ch < CA; ++ch)
       if (C > 0 || ch < c)
-        res[ch] = bnlk_cubic(cols[0][ch], cols[1][ch], cols[2][ch], cols[3][ch], fx);
+        res[ch] = bnlk_cubic_as<kSeparate>(cols[0][ch], cols[1][ch], cols[2][ch], cols[3][ch],
+                                           fx);
   }
   return ok;
 }

@@ -6,18 +6,23 @@ streaming variant with its residual gate. A solved level goes, as the
 JAX package dispatches on the TPU, to the whole-level solver at K2's
 semantics (``tvl1_fused.py``) when it fits K2's plan, else to the tiled
 solver at K3's semantics (``tvl1_tiled.py``): at 1080p the 1080x1920
-level of a full-resolution (fscale=0) flow.
+level of a full-resolution (fscale=0) flow. ``state_dtype="bfloat16"``
+holds K2's dual planes in bfloat16 (the JAX package's
+``BNLK_TVL1_STATE_DTYPE``, here an argument); levels on the tiled path
+ignore it, as the JAX package's do.
 """
 
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
+from .._dispatch import check_state_dtype
 from ..ops.gaussian import blur_matrix_np, gaussian_blur
-from ..ops.grad import forward_gradient
-from ..ops.warp import bicubic_warp, warp_bicubic_zero
+from ..ops.grad import centered_gradient, divergence, forward_gradient
+from ..ops.warp import bicubic_warp, bicubic_warp_plain, warp_bicubic_zero
 from ..ops.zoom import (_resample_matrix_np, _zoom_out_matrix_np, zoom_in,
                         zoom_in_keys, zoom_out, zoom_out_keys, zoom_size)
 from .tvl1_fused import fused_level_supported, tvl1_single_scale_fused
@@ -25,6 +30,7 @@ from .tvl1_tiled import tvl1_single_scale_tiled
 
 MAX_ITERATIONS = 300          # tvl1flow_lib.c:24
 PRESMOOTHING_SIGMA = 0.8      # tvl1flow_lib.c:25
+GRAD_IS_ZERO = 1e-10          # tvl1flow_lib.c:26
 
 
 def luma(img: torch.Tensor) -> torch.Tensor:
@@ -35,6 +41,57 @@ def luma(img: torch.Tensor) -> torch.Tensor:
         return img[..., 0]
     w = torch.tensor([0.299, 0.587, 0.114], dtype=img.dtype, device=img.device)
     return img[..., :3] @ w
+
+
+def tvl1_flow_single_scale(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3, nwarps=5,
+                           epsilon=0.01, check_every=10, max_iters=MAX_ITERATIONS):
+    """One-scale TV-L1 at the reference's semantics (Dual_TVL1_optic_flow,
+    tvl1flow_lib.c:93-275; JAX flow/tvl1.py:58-154, its XLA level).
+
+    i0, i1: (H, W) float32; u_init: (H, W, 2). Returns (H, W, 2). The
+    three-branch threshold step, the divergence with the reference's
+    borders, the dual step divided by 1 + taut |grad u|; the mean squared
+    update measured on every iteration and tested every ``check_every``,
+    so a solve runs whole groups of ``check_every`` iterations. Plain
+    PyTorch on either device: the JAX package runs it outside any Pallas
+    kernel. The pyramid (:func:`tvl1_flow`) solves its levels with K2's
+    and K3's rules instead, as the JAX package does on the TPU."""
+    h, w = i0.shape
+    size = h * w
+    l_t = float(np.float32(lambda_) * np.float32(theta))
+    taut = tau / theta
+    eps2 = float(np.float32(epsilon * epsilon))
+    i1x, i1y = centered_gradient(i1)
+    i1s = torch.stack([i1, i1x, i1y], dim=-1).contiguous()
+    u1, u2 = u_init[..., 0].float(), u_init[..., 1].float()
+    p = i0.new_zeros((4, h, w))     # p11, p12, p21, p22
+    for _ in range(nwarps):
+        wrp, _ = bicubic_warp_plain(i1s, torch.stack([u1, u2], dim=-1))
+        i1w, i1wx, i1wy = wrp.unbind(-1)
+        grad = i1wx * i1wx + i1wy * i1wy
+        rho_c = i1w - i1wx * u1 - i1wy * u2 - i0
+        err, n = float("inf"), 0
+        while err > eps2 and n < max_iters:
+            for _ in range(check_every):
+                rho = rho_c + i1wx * u1 + i1wy * u2
+                fi = torch.where(grad < GRAD_IS_ZERO, 0.0,
+                                 -rho / torch.clamp(grad, min=GRAD_IS_ZERO))
+                lo, hi = rho < -l_t * grad, rho > l_t * grad
+                v1 = u1 + torch.where(lo, l_t * i1wx, torch.where(hi, -l_t * i1wx, fi * i1wx))
+                v2 = u2 + torch.where(lo, l_t * i1wy, torch.where(hi, -l_t * i1wy, fi * i1wy))
+                u1n = v1 + theta * divergence(p[0], p[1])
+                u2n = v2 + theta * divergence(p[2], p[3])
+                err_t = (torch.sum((u1n - u1) ** 2) + torch.sum((u2n - u2) ** 2)) / size
+                u1x, u1y = forward_gradient(u1n)
+                u2x, u2y = forward_gradient(u2n)
+                ng1 = 1.0 + taut * torch.hypot(u1x, u1y)
+                ng2 = 1.0 + taut * torch.hypot(u2x, u2y)
+                p = torch.stack([(p[0] + taut * u1x) / ng1, (p[1] + taut * u1y) / ng1,
+                                 (p[2] + taut * u2x) / ng2, (p[3] + taut * u2y) / ng2])
+                u1, u2 = u1n, u2n
+            err = float(err_t)
+            n += check_every
+    return torch.stack([u1, u2], dim=-1)
 
 
 def _normalize_pair(i0, i1):
@@ -99,8 +156,9 @@ def _k_check(npx: int) -> int:
 
 
 def _solve_level(a, b, u, *, tau, lambda_, theta, nwarps, epsilon, max_iters,
-                 engine="auto"):
-    """Single-scale solve dispatch, as the JAX package's (flow/tvl1.py:196-235)."""
+                 state_dtype="float32", engine="auto"):
+    """Single-scale solve dispatch, as the JAX package's (flow/tvl1.py:196-235):
+    ``state_dtype`` reaches K2's levels only."""
     h, w = a.shape
     if not fused_level_supported(h, w):
         return tvl1_single_scale_tiled(
@@ -109,7 +167,7 @@ def _solve_level(a, b, u, *, tau, lambda_, theta, nwarps, epsilon, max_iters,
     return tvl1_single_scale_fused(
         a, b, u, tau=tau, lambda_=lambda_, theta=theta, nwarps=nwarps,
         epsilon=epsilon, k_check=_k_check(h * w), max_iters=max_iters,
-        engine=engine)
+        state_dtype=state_dtype, engine=engine)
 
 
 def _zoom_flow(u, nw, nh, zfactor, bases):
@@ -123,8 +181,11 @@ class FlowOps:
     gate. ``parallel.flow`` runs the same pyramid with their row-sharded
     forms."""
 
-    def __init__(self, zfactor, bases, engine, tau, lambda_, theta, epsilon):
+    def __init__(self, zfactor, bases, engine, tau, lambda_, theta, epsilon,
+                 state_dtype="float32"):
+        check_state_dtype(state_dtype)
         self.zfactor, self.bases, self.engine = zfactor, bases, engine
+        self.state_dtype = state_dtype
         self.kw = dict(tau=tau, lambda_=lambda_, theta=theta, epsilon=epsilon)
 
     def prep(self, i0, i1):
@@ -138,7 +199,7 @@ class FlowOps:
 
     def solve(self, a, b, u, nwarps, max_iters):
         return _solve_level(a, b, u, nwarps=nwarps, max_iters=max_iters,
-                            engine=self.engine, **self.kw)
+                            state_dtype=self.state_dtype, engine=self.engine, **self.kw)
 
     def gate(self, a, b, u0) -> bool:
         return warm_gate_ok(a, b, u0, self.engine)
@@ -196,13 +257,14 @@ def flow_pyramid(i0, i1, ops: FlowOps, nscales=100, fscale=0, zfactor=0.5, nwarp
 def tvl1_flow(i0, i1, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
               fscale=0, zfactor=0.5, nwarps=5, epsilon=0.01,
               max_iters: int | None = None, return_carry: bool = False,
-              bases=None, engine: str = "auto"):
+              bases=None, engine: str = "auto", state_dtype: str = "float32"):
     """Multiscale TV-L1 flow from i0 to i1 ((H, W) or (H, W, C)).
 
     Returns (H, W, 2) float32; with return_carry=True also the
     level-``fscale`` flow (the warm-start carry for tvl1_flow_warm).
+    ``state_dtype``: K2's dual planes, "float32" or "bfloat16".
     """
-    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon, state_dtype)
     return flow_pyramid(i0, i1, ops, nscales, fscale, zfactor, nwarps, max_iters,
                         return_carry)
 
@@ -270,12 +332,12 @@ def tvl1_flow_warm(i0, i1, u_carry, tau=0.25, lambda_=0.15, theta=0.3,
                    max_iters: int | None = None,
                    warm_nwarps: int | None = None,
                    warm_max_iters: int | None = None, bases=None,
-                   engine: str = "auto"):
+                   engine: str = "auto", state_dtype: str = "float32"):
     """Warm-started streaming TV-L1: solve only the level-``fscale`` scale,
     initialised from the previous step's level-``fscale`` flow; a carry
     that aligns worse than zero flow (the residual gate) falls back to the
     full cold pyramid. Returns (flow (H, W, 2), u_fs_new)."""
-    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    ops = FlowOps(zfactor, bases, engine, tau, lambda_, theta, epsilon, state_dtype)
     return flow_pyramid_warm(i0, i1, u_carry, ops, nscales, fscale, zfactor, nwarps,
                              max_iters, warm_nwarps, warm_max_iters)
 

@@ -11,7 +11,12 @@ by :func:`tvl1_level_plain`, the same algorithm in plain PyTorch:
   follows from that (:89-103, 243-253);
 - the mean squared update over in-frame pixels, measured on the last
   iteration of each round of ``k_check`` iterations only (:268-285), so
-  the iteration count rises in whole rounds.
+  the iteration count rises in whole rounds;
+- ``state_dtype``: with "bfloat16" the four dual planes are rounded to
+  bfloat16 after every iteration, the last of a round included (the JAX
+  kernel's ``sdt``, :276, 285), while u, the warp constants and all the
+  arithmetic stay float32. Nothing reads the JAX package's
+  ``BNLK_TVL1_STATE_DTYPE``: the caller passes the type.
 
 The shard form (``parallel/flow.py``) runs a level on row blocks, one
 round at a time: :func:`tvl1_level_round` (K2's round entry on CUDA
@@ -23,7 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .._dispatch import use_kernel
+from .._dispatch import check_state_dtype, use_kernel
 from ..ops.grad import centered_gradient
 from ..ops.warp import bicubic_warp
 from .tvl1_cuda import tvl1_level_cuda, tvl1_level_round_cuda
@@ -63,6 +68,14 @@ def _one_iter(U, PA, PB, IG, nig, rho_c, l_t, theta, taut):
     return Un, (PA + taut * UX) * R, (PB + taut * UY) * R
 
 
+def _store_duals(PA, PB, state_dtype: str):
+    """The dual planes as an iteration stores them: rounded to bfloat16 and
+    widened back where ``state_dtype`` is "bfloat16" (tvl1_fused.py:276)."""
+    if state_dtype == "bfloat16":
+        return PA.to(torch.bfloat16).float(), PB.to(torch.bfloat16).float()
+    return PA, PB
+
+
 def tvl1_stage_consts_plain(i1s, state, i0, y0: int = 0, nig: bool = False):
     """Plain version of K4's TV-L1 entry: the (4, hb, W) constants {i1wx,
     i1wy, grad, rho_c} of a warp stage (tvl1_pallas.py:272-275) from i1s
@@ -84,8 +97,10 @@ def tvl1_stage_consts_plain(i1s, state, i0, y0: int = 0, nig: bool = False):
 
 
 def tvl1_level_plain(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
-                     nwarps=5, epsilon=0.01, k_check=8, max_iters=300):
+                     nwarps=5, epsilon=0.01, k_check=8, max_iters=300,
+                     state_dtype: str = "float32"):
     """Plain version of K2. i0, i1: (H, W) float32; u_init: (H, W, 2)."""
+    check_state_dtype(state_dtype)
     h, w = i0.shape
     i1x, i1y = centered_gradient(i1)
     i1s = torch.stack([i1, i1x, i1y], dim=-1)
@@ -103,6 +118,7 @@ def tvl1_level_plain(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
             for _ in range(k_check):
                 Up = U
                 U, PA, PB = _one_iter(U, PA, PB, IG, nig, rho_c, l_t, theta, taut)
+                PA, PB = _store_duals(PA, PB, state_dtype)
             dU = U - Up
             err = float(torch.sum(dU * dU) / (h * w))
             n += k_check
@@ -111,12 +127,13 @@ def tvl1_level_plain(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
 
 def tvl1_single_scale_fused(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3,
                             nwarps=5, epsilon=0.01, k_check=8, max_iters=300,
-                            engine: str = "auto"):
+                            state_dtype: str = "float32", engine: str = "auto"):
     """One TV-L1 level: K2 on CUDA tensors, its plain version on CPU tensors.
 
     ``engine="plain"`` runs the plain version on any device."""
     kw = dict(tau=tau, lambda_=lambda_, theta=theta, nwarps=nwarps,
-              epsilon=epsilon, k_check=k_check, max_iters=max_iters)
+              epsilon=epsilon, k_check=k_check, max_iters=max_iters,
+              state_dtype=state_dtype)
     if use_kernel(i0, engine):
         return tvl1_level_cuda(i0, i1, u_init, **kw)
     return tvl1_level_plain(i0, i1, u_init, **kw)
@@ -149,7 +166,7 @@ def padded(x, pad):
 
 
 def tvl1_level_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15,
-                           theta=0.3):
+                           theta=0.3, state_dtype: str = "float32"):
     """Plain version of K2's round entry: ``k`` iterations of
     :func:`tvl1_level_plain` on the (6, hb, W) state block {u1, u2, p11,
     p12, p21, p22} of the level's rows y0 .. y0 + hb - 1 (h rows in all),
@@ -160,7 +177,10 @@ def tvl1_level_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15
     one row further each iteration, so they stay in the halo
     (:func:`check_round`). Returns (new block, the sum of the squared
     update of the last iteration over its own rows, 0-d): the level's error
-    is the sum over every shard, divided by its pixels."""
+    is the sum over every shard, divided by its pixels. ``state_dtype`` as
+    :func:`tvl1_level_plain`'s: the rounding is pointwise, so a block's own
+    rows still equal the whole level's."""
+    check_state_dtype(state_dtype)
     check_round(state, k, y0, h, halo)
     pad = edge_rows(y0, state.shape[1], h)
     st, cs = padded(state, pad), padded(consts, pad)
@@ -171,6 +191,7 @@ def tvl1_level_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15
     for _ in range(k):
         Up = U
         U, PA, PB = _one_iter(U, PA, PB, IG, nig, rho_c, l_t, theta, taut)
+        PA, PB = _store_duals(PA, PB, state_dtype)
     rows = slice(pad[0], st.shape[1] - pad[1])
     dU = (U - Up)[:, pad[0] + halo[0]:st.shape[1] - pad[1] - halo[1]]
     return (torch.stack([U[0], U[1], PA[0], PB[0], PA[1], PB[1]])[:, rows].contiguous(),
@@ -178,12 +199,13 @@ def tvl1_level_round_plain(state, consts, k, y0, h, halo, tau=0.25, lambda_=0.15
 
 
 def tvl1_level_round(state, consts, k, y0, h, halo, ctl, slot, r, count=False, tau=0.25,
-                     lambda_=0.15, theta=0.3, engine: str = "auto"):
+                     lambda_=0.15, theta=0.3, state_dtype: str = "float32",
+                     engine: str = "auto"):
     """Round ``r`` of K2's rule on shard ``slot``'s block under ``ctl``'s
     stop-or-go (``tvl1_tile.RoundCtl``): K2's round entry on CUDA tensors
     (updates ``state`` in place), its plain version on CPU tensors. Returns
     the block; its owned sum is in ``ctl.sums``."""
-    kw = dict(tau=tau, lambda_=lambda_, theta=theta)
+    kw = dict(tau=tau, lambda_=lambda_, theta=theta, state_dtype=state_dtype)
     if use_kernel(state, engine):
         return tvl1_level_round_cuda(state, consts, k, y0, h, halo, ctl, slot, r, count, **kw)
     return ctl.run_plain(tvl1_level_round_plain, state, consts, k, y0, h, halo, slot, r, **kw)

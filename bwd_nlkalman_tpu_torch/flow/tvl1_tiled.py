@@ -153,13 +153,16 @@ def tvl1_stage_plain(state, consts, k_iters, max_iters, epsilon, tau=0.25,
 
 
 def tvl1_stage_consts(i1s, state, i0, engine: str = "auto", y0: int = 0,
-                      nig: bool = False):
+                      nig: bool = False, state_dtype: str = "float32"):
     """K4's TV-L1 entry on CUDA tensors, its plain version on CPU tensors;
-    ``y0`` and ``nig`` as :func:`tvl1_stage_consts_plain`'s.
+    ``y0`` and ``nig`` as :func:`tvl1_stage_consts_plain`'s. With ``nig``,
+    ``state_dtype`` is that of the K2 rule the constants are for: the
+    kernel's bfloat16 form rounds each operation on its own, as the plain
+    version does in either.
 
     ``engine="plain"`` runs the plain version on any device."""
     if use_kernel(i0, engine):
-        return warp_tvl1_consts_cuda(i1s, state, i0, y0, nig)
+        return warp_tvl1_consts_cuda(i1s, state, i0, y0, nig, state_dtype)
     return tvl1_stage_consts_plain(i1s, state, i0, y0, nig)
 
 

@@ -10,12 +10,34 @@ the variant's pipeline and sigma's default parameters:
 - ``nlk-lsmo``   lag-1 smoothing (nlkalman-lsmo-seq.sh)
 - ``msnlk``      multiscale DCT pyramid (msnlkalman-seq.sh)
 - ``msnlk-lz3``  Lanczos-3 pyramid (msnlkalman-lz3-seq.sh)
+
+It also re-exports the building blocks, as the JAX package's does: the
+frame passes, the flow and occlusion mask, the sequence drivers and the
+parameters.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 from .._dispatch import check_window_dtype, entry_device
-from ..pipeline.multiscale import PYRAMIDS, MultiscaleDenoiser
+from ..core import nlkalman_filter_frame, nlkalman_smooth_frame  # noqa: F401
+from ..flow import occlusion_mask, tvl1_flow  # noqa: F401
+from ..params import FilterMode, NLKParams, default_params  # noqa: F401
+from ..pipeline import (  # noqa: F401
+    denoise_batch,
+    denoise_sequence,
+    filter_sequence,
+    fsmo_sequence,
+    lsmo_sequence,
+    smooth_sequence,
+)
+from ..pipeline.multiscale import (  # noqa: F401
+    PYRAMIDS,
+    MultiscaleDenoiser,
+    ms_denoise_sequence,
+    pyramid_flow,
+)
 from ..pipeline.sequence import FlowConfig, NLKalmanDenoiser
 
 # name -> (NLKalmanDenoiser's smoother or MultiscaleDenoiser's pyramid,
@@ -36,7 +58,8 @@ def get_model(name: str, sigma: float, flow_cfg: FlowConfig | None = None,
     variant at noise level ``sigma`` (TRAIN14 defaults).
 
     ``flow_cfg``: the single-scale variants' flow (default: the
-    reference's); the multiscale variants use their scripts' own. Runs on
+    reference's); the multiscale variants use their scripts' own, with
+    ``flow_cfg.state_dtype`` (K2's dual planes). Runs on
     ``device``, the card unless the caller asks for the CPU: a card that
     is not there raises here. ``window_dtype`` is the NLK passes' band
     type. The variant's module, with the constants of a frame size, is
@@ -58,7 +81,9 @@ def get_model(name: str, sigma: float, flow_cfg: FlowConfig | None = None,
         if (h, w) not in modules:
             modules[(h, w)] = (
                 MultiscaleDenoiser(sigma, h, w, pyramid=kind, device=dev,
-                                   window_dtype=window_dtype)
+                                   window_dtype=window_dtype,
+                                   flow_cfg=dataclasses.replace(
+                                       pyramid_flow(kind), state_dtype=cfg.state_dtype))
                 if kind in PYRAMIDS else
                 NLKalmanDenoiser(sigma, h, w, cfg, device=dev, smoother=kind,
                                  window_dtype=window_dtype))

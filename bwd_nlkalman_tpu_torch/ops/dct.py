@@ -1,9 +1,12 @@
-"""Orthonormal patch DCT bases, the plain all-patch DCT and the
-whole-image DCT of the multiscale pyramid.
+"""Orthonormal patch DCTs, the plain all-patch DCT and the whole-image
+DCT of the multiscale pyramid.
 
-Port of the parts of ``bwd_nlkalman_tpu.ops.dct`` the NLK pass and the
-pyramid use. The numpy bases are copies of the JAX package's (that
-module imports JAX).
+Port of ``bwd_nlkalman_tpu.ops.dct``. The numpy bases are copies of the
+JAX package's (that module imports JAX). Every product runs at full
+float32 precision, as the JAX package's ``precision="highest"`` einsums
+do; the JAX package's ``dct_image_all_patches_matmul`` (default MXU
+precision, for its bf16 band path on the TPU) is not ported: the port's
+K1 computes its bands itself.
 """
 
 from __future__ import annotations
@@ -32,6 +35,45 @@ def _ortho_basis_kron_np(psz: int) -> np.ndarray:
     """Flattened 2-D basis (psz^2, psz^2); row = ky*psz+kx, col = dy*psz+dx."""
     d = _ortho_basis_np(psz).astype(np.float64)
     return np.kron(d, d).astype(np.float32)
+
+
+def patch_dct_matrix(psz: int, device=None) -> torch.Tensor:
+    """Orthonormal 1-D DCT-II basis (psz, psz) on ``device`` (the CPU by
+    default)."""
+    return torch.as_tensor(_ortho_basis_np(psz), device=device)
+
+
+def patch_dct_matrix_2d(psz: int, device=None) -> torch.Tensor:
+    """Flattened orthonormal 2-D DCT-II basis (psz^2, psz^2): y = B @ vec(p)."""
+    return torch.as_tensor(_ortho_basis_kron_np(psz), device=device)
+
+
+def _ortho(n: int, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(_ortho_basis_np(n), dtype=like.dtype, device=like.device)
+
+
+def dct2_patches(p: torch.Tensor) -> torch.Tensor:
+    """Orthonormal 2-D DCT-II of patches shaped (..., psz, psz): D p D^T."""
+    d = _ortho(p.shape[-1], p)
+    return torch.matmul(torch.matmul(d, p), d.T)
+
+
+def idct2_patches(p: torch.Tensor) -> torch.Tensor:
+    """Inverse of :func:`dct2_patches` (orthonormal, so D^T p D)."""
+    d = _ortho(p.shape[-1], p)
+    return torch.matmul(torch.matmul(d.T, p), d)
+
+
+def dct2_flat(x: torch.Tensor, psz: int) -> torch.Tensor:
+    """Orthonormal 2-D DCT-II on flattened patches (..., psz*psz) -> same."""
+    b = torch.as_tensor(_ortho_basis_kron_np(psz), dtype=x.dtype, device=x.device)
+    return torch.matmul(x, b.T)
+
+
+def idct2_flat(x: torch.Tensor, psz: int) -> torch.Tensor:
+    """Inverse of :func:`dct2_flat`."""
+    b = torch.as_tensor(_ortho_basis_kron_np(psz), dtype=x.dtype, device=x.device)
+    return torch.matmul(x, b)
 
 
 def dct_image_all_patches(img: torch.Tensor, psz: int) -> torch.Tensor:

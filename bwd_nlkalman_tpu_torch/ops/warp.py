@@ -62,6 +62,30 @@ def bicubic_warp_plain(im: torch.Tensor, flow: torch.Tensor,
     return torch.where(valid[..., None], out, 0.0), valid
 
 
+def bicubic_sample(im: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
+                   border_out: bool) -> torch.Tensor:
+    """Sample the (H, W) image ``im`` at float coordinates (uu, vv) at the
+    reference's semantics (bicubic_interpolation_at,
+    lib/tvl1flow/bicubic_interpolation.c:138-234; JAX ops/warp.py:242):
+    taps clamped to the frame's edge, and with ``border_out`` 0 wherever
+    any tap of the 4x4 footprint falls outside it. Plain PyTorch on either
+    device (the JAX package computes it with XLA, never with its Pallas
+    warp)."""
+    h, w = im.shape[:2]
+    x0, y0 = torch.floor(uu), torch.floor(vv)
+    fx, fy = uu - x0, vv - y0
+    bx, by = x0.long() - 1, y0.long() - 1
+    out = (bx < 0) | (bx + 3 >= w) | (by < 0) | (by + 3 >= h)
+    flat = im.reshape(-1)
+    cols = []
+    for i in range(4):
+        xi = torch.clamp(bx + i, 0, w - 1)
+        rows = [flat[torch.clamp(by + k, 0, h - 1) * w + xi] for k in range(4)]
+        cols.append(_cubic(rows[0], rows[1], rows[2], rows[3], fy))
+    res = _cubic(cols[0], cols[1], cols[2], cols[3], fx)
+    return torch.where(out, 0.0, res) if border_out else res
+
+
 def bicubic_warp(im, flow, occl=None, engine: str = "auto", y0: int = 0):
     """K4 on CUDA tensors, its plain version on CPU tensors; given ``y0``,
     the rows y0 .. y0 + hb - 1 of the frame that ``flow`` (hb, W, 2) covers.

@@ -18,7 +18,7 @@ import ctypes
 import torch
 
 from .._build import call, stream_ptr
-from .._dispatch import LaunchCounter, check_tensor
+from .._dispatch import LaunchCounter, check_state_dtype, check_tensor
 
 MAX_C = 9          # channels the kernel takes (kK4MaxC, csrc/warp_tap.cuh)
 
@@ -73,14 +73,18 @@ def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
 
 
 def warp_tvl1_consts_cuda(i1s: torch.Tensor, state: torch.Tensor,
-                          i0: torch.Tensor, y0: int = 0, nig: bool = False) -> torch.Tensor:
+                          i0: torch.Tensor, y0: int = 0, nig: bool = False,
+                          state_dtype: str = "float32") -> torch.Tensor:
     """Kernel version of ``tvl1_stage_consts_plain``: i1s (H, W, 3) = (I1,
     I1x, I1y) warped along u1 = state[0], u2 = state[1] of the (6, hb, W)
     TV-L1 state, and i0 (hb, W), to the (4, hb, W) constants {i1wx, i1wy,
     i1wx^2 + i1wy^2, i1w - i1wx u1 - i1wy u2 - i0}, in one launch, for the
     frame's rows y0 .. y0 + hb - 1 (the whole frame by default). With
     ``nig`` the third plane is K2's nig = -1 / (i1wx^2 + i1wy^2), zero
-    where that is below 1e-10."""
+    where that is below 1e-10; with ``nig`` and ``state_dtype="bfloat16"``
+    the constants of K2's bfloat16 rule, each operation rounded on its own
+    as the plain version's (csrc/bicubic.cuh)."""
+    check_state_dtype(state_dtype)
     h, w = i1s.shape[:2]
     hb = i0.shape[0]
     _check_frame(h, w, 3)
@@ -94,7 +98,8 @@ def warp_tvl1_consts_cuda(i1s: torch.Tensor, state: torch.Tensor,
     i1s, state = _aligned(i1s), _aligned(state)
     consts = torch.empty((4, hb, w), dtype=torch.float32, device=dev)
     call("bnlk_warp_tvl1_consts", i1s.data_ptr(), state.data_ptr(), i0.data_ptr(),
-         consts.data_ptr(), h, w, int(y0), hb, int(bool(nig)),
+         consts.data_ptr(), h, w, int(y0), hb,
+         (2 if state_dtype == "bfloat16" else 1) if nig else 0,
          ctypes.c_void_p(stream_ptr(dev)))
     LAUNCHES.add()
     return consts

@@ -12,7 +12,9 @@ and gathers the result there:
   ``tvl1._k_check`` iterations where ``fused_level_supported``, else K3's
   where form in blocks of ``tvl1_tiled.K_ITERS``. A shard keeps its rows
   and a halo of k rows from each neighbour (the rows k iterations reach)
-  for the whole level. Per warp stage, K4's TV-L1 entry writes the
+  for the whole level (``state_dtype`` reaches K2's rounds, and K4's
+  constants then take the form of K2's bf16 rule, as the whole level
+  computes them). Per warp stage, K4's TV-L1 entry writes the
   constants of its rows plus halo (the source, I1 and its gradient, copied
   to each shard's device once per level: a tap reaches as far as the flow
   does). Then rounds of k iterations: each shard's round launch (K2's or
@@ -130,8 +132,9 @@ class ShardedFlowOps(tvl1.FlowOps):
     """The steps of ``tvl1.flow_pyramid`` row-sharded over ``devs`` (the
     'sp' devices of one mesh row; whole tensors on ``devs[0]``)."""
 
-    def __init__(self, devs, zfactor, bases, engine, tau, lambda_, theta, epsilon):
-        super().__init__(zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    def __init__(self, devs, zfactor, bases, engine, tau, lambda_, theta, epsilon,
+                 state_dtype="float32"):
+        super().__init__(zfactor, bases, engine, tau, lambda_, theta, epsilon, state_dtype)
         self.devs = tuple(devs)
 
     def solve(self, a, b, u, nwarps, max_iters):
@@ -144,7 +147,7 @@ class ShardedFlowOps(tvl1.FlowOps):
             return super().solve(a, b, u, nwarps, max_iters)
         STATS.levels_sharded.append((h, w, len(self.devs)))
         return _solve_sharded(a, b, u, self.devs, own, k, k2, nwarps, max_iters,
-                              self.engine, **self.kw)
+                              self.engine, self.state_dtype, **self.kw)
 
     def gate(self, a, b, u0) -> bool:
         return bool(_warm_gate(a, b, u0, self.devs, self.engine)[0])
@@ -173,9 +176,10 @@ def _share_sums(ctls: dict, devs, r: int) -> None:
                 ctl.sums[p, i:i + 1].copy_(src, non_blocking=True)
 
 
-def _solve_sharded(a, b, u, devs, own, k, k2, nwarps, max_iters, engine, tau, lambda_,
-                   theta, epsilon):
-    """One level on row blocks (the module docstring); (h, w, 2) on devs[0]."""
+def _solve_sharded(a, b, u, devs, own, k, k2, nwarps, max_iters, engine, state_dtype, tau,
+                   lambda_, theta, epsilon):
+    """One level on row blocks (the module docstring); (h, w, 2) on devs[0].
+    ``state_dtype`` reaches K2's rounds only, as the whole level's."""
     h, w = a.shape
     first = devs[0]
     ext = [(max(0, r0 - k), min(h, r1 + k)) for r0, r1 in own]
@@ -189,11 +193,14 @@ def _solve_sharded(a, b, u, devs, own, k, k2, nwarps, max_iters, engine, tau, la
     ctls = {d: RoundCtl(len(devs), d, epsilon, h, w) for d in dict.fromkeys(devs)}
     step = tvl1_level_round if k2 else tvl1_stage_round
     kw = dict(tau=tau, lambda_=lambda_, theta=theta, engine=engine)
+    if k2:
+        kw["state_dtype"] = state_dtype
     n_rounds = -(-max_iters // k)
     watch = _FlagWatch(ctls[first].flag, nwarps * n_rounds)
     for _ in range(nwarps):
         STATS.stages += 1
-        consts = [tvl1_stage_consts(i1s_d[i], states[i], a_d[i], engine, ext[i][0], nig=k2)
+        consts = [tvl1_stage_consts(i1s_d[i], states[i], a_d[i], engine, ext[i][0], nig=k2,
+                                    state_dtype=state_dtype)
                   for i in range(len(devs))]
         watch.stage()
         for r in range(n_rounds):
@@ -230,18 +237,20 @@ def _warm_gate(a, b, u0, devs, engine):
     return (r_warm <= r_zero) & (vs >= 0.5 * h * w), r_warm, r_zero
 
 
-def _ops(mesh: Mesh, row: int, zfactor, bases, engine, tau, lambda_, theta, epsilon):
+def _ops(mesh: Mesh, row: int, zfactor, bases, engine, tau, lambda_, theta, epsilon,
+         state_dtype):
     return ShardedFlowOps(mesh.devices[row], zfactor, bases, engine, tau, lambda_, theta,
-                          epsilon)
+                          epsilon, state_dtype)
 
 
 def sharded_tvl1_flow(i0, i1, mesh: Mesh, tau=0.25, lambda_=0.15, theta=0.3, nscales=100,
                       fscale=0, zfactor=0.5, nwarps=5, epsilon=0.01,
                       max_iters: int | None = None, return_carry: bool = False,
-                      bases=None, engine: str = "auto", row: int = 0):
+                      bases=None, engine: str = "auto", row: int = 0,
+                      state_dtype: str = "float32"):
     """``tvl1.tvl1_flow`` row-sharded over batch row ``row`` of the mesh:
     i0, i1 and the result on its first device (``bases`` built there)."""
-    ops = _ops(mesh, row, zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    ops = _ops(mesh, row, zfactor, bases, engine, tau, lambda_, theta, epsilon, state_dtype)
     return tvl1.flow_pyramid(i0, i1, ops, nscales, fscale, zfactor, nwarps, max_iters,
                              return_carry)
 
@@ -250,10 +259,11 @@ def sharded_tvl1_flow_warm(i0, i1, u_carry, mesh: Mesh, tau=0.25, lambda_=0.15, 
                            nscales=100, fscale=0, zfactor=0.5, nwarps=5, epsilon=0.01,
                            max_iters: int | None = None, warm_nwarps: int | None = None,
                            warm_max_iters: int | None = None, bases=None,
-                           engine: str = "auto", row: int = 0):
+                           engine: str = "auto", row: int = 0,
+                           state_dtype: str = "float32"):
     """``tvl1.tvl1_flow_warm`` row-sharded over batch row ``row`` of the
     mesh: (flow, level-fscale carry) on its first device."""
-    ops = _ops(mesh, row, zfactor, bases, engine, tau, lambda_, theta, epsilon)
+    ops = _ops(mesh, row, zfactor, bases, engine, tau, lambda_, theta, epsilon, state_dtype)
     return tvl1.flow_pyramid_warm(i0, i1, u_carry, ops, nscales, fscale, zfactor, nwarps,
                                   max_iters, warm_nwarps, warm_max_iters)
 

@@ -28,7 +28,8 @@ import dataclasses
 import torch
 from torch import nn
 
-from .._dispatch import check_engine, check_window_dtype, entry_device, runs_kernels
+from .._dispatch import (check_engine, check_state_dtype, check_window_dtype, entry_device,
+                         runs_kernels)
 from ..core import nlkalman_filter_frame, nlkalman_smooth_frame
 from ..core.engine import nlk_bases
 from ..core.nlkalman import note_plain_routes
@@ -43,7 +44,10 @@ from ..params import FilterMode, NLKParams, default_params
 @dataclasses.dataclass(frozen=True)
 class FlowConfig:
     """Optical-flow parameters as the pipeline scripts pass them
-    (scripts/nlkalman-seq.sh:12,47-51); fields as in the JAX package."""
+    (scripts/nlkalman-seq.sh:12,47-51); fields as in the JAX package, and
+    ``state_dtype``, the type of K2's dual planes ("float32" or
+    "bfloat16"), which the JAX package reads from its
+    ``BNLK_TVL1_STATE_DTYPE`` environment variable."""
 
     fscale: int = 1
     lambda_: float = 0.25
@@ -58,12 +62,17 @@ class FlowConfig:
     warm_start: bool = False
     warm_nwarps: int | None = None
     warm_max_iters: int | None = None
+    state_dtype: str = "float32"
+
+    def __post_init__(self):
+        check_state_dtype(self.state_dtype)
 
     def _kw(self):
         return dict(tau=self.tau, lambda_=self.lambda_, theta=self.theta,
                     nscales=self.nscales, fscale=self.fscale,
                     zfactor=self.zfactor, nwarps=self.nwarps,
-                    epsilon=self.epsilon, max_iters=self.max_iters)
+                    epsilon=self.epsilon, max_iters=self.max_iters,
+                    state_dtype=self.state_dtype)
 
     # each with a ``mesh``: row-sharded over it (parallel/flow.py)
     def flow(self, i0, i1, engine="auto", bases=None, mesh=None):

@@ -2,6 +2,7 @@
 compare two checkouts in turns.
 
     python3 bwd_nlkalman_tpu_torch/tools/tvl1_bench.py [--against DIR]
+        [--state-dtype {float32,bfloat16}]
 
 Each turn is a worker process that imports ``bwd_nlkalman_tpu_torch``
 from one checkout's root, builds that checkout's kernels and times, on
@@ -17,7 +18,9 @@ a 1080p gray pair of a translating scene with noise at sigma=20
 - the 1080x1920 level of the tiled solver (K4 warps, constants, K3; 5
   warp stages), as slice 2's finest level;
 - K4's two entries at 1080p on the whole frame: a 2-channel warp with
-  occlusion along a smooth flow, and a 1080x1920 warp stage's constants.
+  occlusion along a smooth flow, and a 1080x1920 warp stage's constants;
+- with ``--state-dtype bfloat16``, both 540x960 K2 levels again with
+  bfloat16 dual planes (``*_bf16``), in this checkout's turns only.
 
 For each: ``ms``, the mean per call between CUDA events over ``REPS``
 calls after a warm-up; ``wall_ms``, the host clock per call around one
@@ -28,7 +31,7 @@ checkout, for example the parent commit unpacked with ``git archive``)
 the turns run other, this, this, other, so both are timed on the same
 card. Every turn prints one JSON line with the card's name and power
 limit; the last line is the mean per tree and ``digests_equal``, whether
-every turn gave the same bits in every case. Needs a CUDA device.
+every turn that ran a case gave the same bits in it. Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -60,11 +63,12 @@ def noisy_frames(h, w, frames, sigma=SIGMA, seed=0):
     return clean + sigma * rng.standard_normal(clean.shape).astype(np.float32)
 
 
-def cases(k2_level, k3_block, k3_level, k4_warp, k4_consts):
+def cases(k2_level, k3_block, k3_level, k4_warp, k4_consts, bf16=False):
     """name -> zero-argument call, on the card, from each tree's own
     functions (``tvl1_level_cuda``, ``tvl1_block_cuda``,
     ``tvl1_single_scale_tiled``, ``bicubic_warp_cuda``,
-    ``warp_tvl1_consts_cuda``)."""
+    ``warp_tvl1_consts_cuda``); with ``bf16`` the K2 levels with
+    bfloat16 duals too."""
     import torch
     from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
 
@@ -87,7 +91,7 @@ def cases(k2_level, k3_block, k3_level, k4_warp, k4_consts):
     im2 = torch.stack([nz[0], nz[1]], -1).contiguous()
     i1s = torch.stack([b, *tvl1_tiled.centered_gradient(b)], -1).contiguous()
     ustate = torch.cat([flow.permute(2, 0, 1), a.new_zeros((4,) + a.shape)]).contiguous()
-    return {
+    out = {
         "k2_cold_540x960": lambda: k2_level(h0, h1, zero, nwarps=5, **kw),
         "k2_warm3_540x960": lambda: k2_level(w0, w1, warm, nwarps=3, **kw),
         "k3_block24_1080x1920": lambda: k3_block(state, consts, 24),
@@ -96,6 +100,12 @@ def cases(k2_level, k3_block, k3_level, k4_warp, k4_consts):
         "k4_warp_c2_1080p": lambda: k4_warp(im2, flow, occ),
         "k4_consts_1080x1920": lambda: k4_consts(i1s, ustate, a),
     }
+    if bf16:
+        sd = dict(kw, state_dtype="bfloat16")
+        warm16 = k2_level(h0, h1, zero, nwarps=5, **sd)
+        out["k2_cold_540x960_bf16"] = lambda: k2_level(h0, h1, zero, nwarps=5, **sd)
+        out["k2_warm3_540x960_bf16"] = lambda: k2_level(w0, w1, warm16, nwarps=3, **sd)
+    return out
 
 
 def digest(out) -> str:
@@ -106,7 +116,7 @@ def digest(out) -> str:
     return h.hexdigest()[:16]
 
 
-def worker(root: str) -> dict:
+def worker(root: str, bf16: bool = False) -> dict:
     """Time one checkout's K2 and K3 (imported from ``root``) on the card."""
     sys.path.insert(0, root)
     import torch
@@ -123,7 +133,7 @@ def worker(root: str) -> dict:
     _build.library()
     res = {}
     for name, fn in cases(tvl1_level_cuda, tvl1_block_cuda, tvl1_single_scale_tiled,
-                          bicubic_warp_cuda, warp_tvl1_consts_cuda).items():
+                          bicubic_warp_cuda, warp_tvl1_consts_cuda, bf16).items():
         dig = digest(fn())
         ms = cuda_ms(fn, REPS)
         torch.cuda.synchronize()
@@ -144,16 +154,20 @@ def worker(root: str) -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another checkout's root, timed in turns")
+    ap.add_argument("--state-dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="bfloat16: time the K2 levels with bf16 duals too")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
+    ap.add_argument("--bf16", action="store_true", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.worker:
-        print(json.dumps(worker(os.path.abspath(a.worker))), flush=True)
+        print(json.dumps(worker(os.path.abspath(a.worker), a.bf16)), flush=True)
         return 0
     roots = [ROOT] if not a.against else [a.against, ROOT, ROOT, a.against]
     runs = []
     for r in roots:
+        bf16 = ["--bf16"] if a.state_dtype == "bfloat16" and r == ROOT else []
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                              os.path.abspath(r)], capture_output=True, text=True)
+                              os.path.abspath(r), *bf16], capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stdout + out.stderr)
             return out.returncode
@@ -165,7 +179,10 @@ def main(argv=None) -> int:
         m = mean.setdefault(run["root"], {})
         for name, c in run["cases"].items():
             m.setdefault(name, []).append(c["ms"])
-    digests = {name: {run["cases"][name]["digest"] for run in runs} for name in runs[0]["cases"]}
+    digests: dict = {}
+    for run in runs:
+        for name, c in run["cases"].items():
+            digests.setdefault(name, set()).add(c["digest"])
     print(json.dumps({"card": runs[0]["card"], "mean_ms": {
         root: {k: sum(v) / len(v) for k, v in m.items()} for root, m in mean.items()},
         "digests": {k: sorted(v) for k, v in digests.items()},

@@ -35,16 +35,24 @@ arguments, one GPU). Phases, each reported on its own line:
    plain pass with the same bands, and the slice's three passes in bf16 at
    270x480; then K1 at 1080p gray, flt1 and smo1, at psz 4, 8 and 16 in
    float32 and psz 8 in bf16: event ms, device ms, each stage's device ms
-   and the bound, beside the bound with the bands' own traffic;
+   and the bound, beside the bound with the bands' own traffic; K2 with
+   bfloat16 duals (``state_dtype="bfloat16"``) against its plain version
+   with the same duals, on the 25x41 cases and the 540x960 level (as many
+   iterations, K2's level bars, the same bits expected: that rule rounds
+   every operation as the plain version does), its EPE against the
+   float32 level, timed in turns with the float32 level, with the bound
+   and the bound with the state through device memory (duals at 2 B);
 4. slice 1: ``NLKalmanDenoiser`` on 4 frames of 1080p gray at sigma=20
    with warm-started half-resolution flow; outputs must be finite and
    denoise, and K1, K2 and K4 must have launched during that run; then
    one more run under torch.profiler: device busy time, idle share, the
    five kernels that take the most device time, and each of K1-K4's
    device time and kernel count;
-4b. slice 1 with ``window_dtype="bfloat16"`` on the same frames: flt2
-   and smo1 within 0.05 dB of the float32 run, K1's launches as many,
-   none on the plain route; frames/s beside the float32 run's, profiled;
+4b. slice 1 on the same frames with bf16 bands (``window_dtype``), with
+   bf16 duals in K2 (``FlowConfig(state_dtype="bfloat16")``) and with
+   both: flt2 and smo1 within 0.05 dB of the float32 run, K1's launches as
+   many, none on the plain route; frames/s beside the float32 run's,
+   profiled;
 5. slice 2: ``NLKalmanDenoiser`` with full-resolution flow (fscale=0) on
    3 frames of 1080p gray; the 1080x1920 flow level runs K3, so K1, K2,
    K3 and K4 must all have launched; then a profiled run as in phase 4;
@@ -112,8 +120,12 @@ arguments, one GPU). Phases, each reported on its own line:
    equal to their formulas, the occlusion masks of both flows differing at
    no more than 1e-4 of the pixels, K4's shard warps against the
    whole-frame warp (atol 1e-3, the same masks), and ms per flow, sharded
-   against whole; ``denoise_sequence_sharded`` on slice 1's clip and flow
-   at sp 2 and 3, the flow sharded too: frames/s, flt2 and smo1 within
+   against whole; slice 1's warm step with bf16 duals at sp 2, the same
+   bits as the whole-frame bf16 step; the shard forms against their plain
+   versions on every shard of sp 2-4 (K2's round in float32 and with bf16
+   duals, K3's, K4's TV-L1 entry and shard warp);
+   ``denoise_sequence_sharded`` on slice 1's clip and flow at sp 2 and 3,
+   the flow sharded too: frames/s, flt2 and smo1 within
    0.05 dB of slice 1, K1 = 11 sp, K2 = the levels run whole + sp x the
    rounds issued, K3 = 0, K4 = sp x (6 warps + the warm gates + the warp
    stages of the sharded levels), the levels run whole, profiled with its
@@ -135,7 +147,8 @@ Every phase prints its seconds. Every launch counter is set to 0 just
 before each of the paths 4-7, 9-13, 14's sharded flows and sharded
 sequence and 15's command and read just after. The second-to-last line is a JSON object with one entry
 per kernel (K1's with a ``variants`` list: each widened case held, with
-its max abs error); the last line is ``{"ok": true, "device": {...}}``. Any
+its max abs error; K2's: each bf16-dual case, with the 540x960 level's
+times and bounds); the last line is ``{"ok": true, "device": {...}}``. Any
 failure raises and the script exits non-zero without that line.
 """
 
@@ -143,6 +156,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import itertools
 import json
 import os
@@ -572,11 +586,10 @@ def phase_k1_widened(smi):
             torch.cuda.empty_cache()
 
 
-def phase_k2(smi):
+def small_level():
+    """The JAX suite's 25x41 level (tests/test_round3.py:26-60) on the card:
+    i0, i1 and a zero flow."""
     import torch
-    from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_fused
-    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS, tvl1_level_cuda
-    from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
 
     rng = np.random.default_rng(7)
     h, w = 25, 41
@@ -584,7 +597,30 @@ def phase_k2(smi):
     base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
     i0 = torch.from_numpy(np.ascontiguousarray(base[4:4 + h, 4:4 + w])).cuda()
     i1 = torch.from_numpy(np.ascontiguousarray(base[2:2 + h, 5:5 + w])).cuda()
-    u0 = i0.new_zeros((h, w, 2))
+    return i0, i1, i0.new_zeros((h, w, 2))
+
+
+def half_level():
+    """The slice's finest solved level, 540x960 from a 1080p pair of
+    make_clip, prepared as the flow prepares it: i0, i1 and a zero flow."""
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+
+    _, noisy = make_clip(*FULL, 2, SIGMA)
+    nz = torch.from_numpy(noisy).cuda()
+    a, b = tvl1._prep_pair(nz[1, ..., 0], nz[0, ..., 0])
+    a, b = tvl1.zoom_out(a, 0.5), tvl1.zoom_out(b, 0.5)
+    return a, b, a.new_zeros(a.shape + (2,))
+
+
+def phase_k2(smi):
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1_fused
+    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS, tvl1_level_cuda
+    from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
+
+    h, w = 25, 41
+    i0, i1, u0 = small_level()
     worst = 0.0
     # the JAX suite's bars for its K2 (tests/test_round3.py:45-61)
     for nwarps, k_check, max_iters, atol in ((2, 8, 32, 2e-3), (1, 1, 1, 1e-5)):
@@ -600,11 +636,7 @@ def phase_k2(smi):
     PARITY["K2"] = worst
 
     # the slice's finest solved level: 540x960 from a 1080p pair
-    _, noisy = make_clip(*FULL, 2, SIGMA)
-    nz = torch.from_numpy(noisy).cuda()
-    a, b = tvl1._prep_pair(nz[1, ..., 0], nz[0, ..., 0])
-    a, b = tvl1.zoom_out(a, 0.5), tvl1.zoom_out(b, 0.5)
-    u0 = a.new_zeros(a.shape + (2,))
+    a, b, u0 = half_level()
     kw = dict(lambda_=0.25, nwarps=5, k_check=8, max_iters=300)
     k_ms, p_ms = timed_pair(lambda: tvl1_level_cuda(a, b, u0, **kw),
                             lambda: tvl1_level_plain(a, b, u0, **kw), 3, 1)
@@ -638,18 +670,89 @@ def phase_k2(smi):
     TIMES["K2"] = (k_ms, p_ms, d_ms)
 
 
+K2_VARIANTS = []    # K2 with bfloat16 duals, each case held against plain
+
+
+def phase_k2_bf16(smi):
+    """K2 with bfloat16 dual planes (``state_dtype="bfloat16"``) against its
+    plain version with the same duals: the 25x41 pair at rounds of one
+    iteration (2 and 3; u depends on the rounded duals from the second on)
+    and at nwarps=2, k_check=8, max_iters=32, at the bars of
+    tests/test_torch_tvl1_state_dtype.py's short cases and the JAX suite's
+    (1e-5, 5e-4, 2e-3); then the 540x960 level: as many iterations as
+    plain, max abs <= K2_LEVEL_MAX and mean EPE <= K2_LEVEL_EPE (the
+    float32 level's bars), no host sync; its EPE against the float32
+    level; event ms, device ms, plain ms and the bound (the duals never
+    leave the kernel, so their type does not enter it)."""
+    import torch
+    from bwd_nlkalman_tpu_torch.flow import tvl1_fused
+    from bwd_nlkalman_tpu_torch.flow.tvl1_cuda import ITERATIONS, tvl1_level_cuda
+    from bwd_nlkalman_tpu_torch.flow.tvl1_fused import tvl1_level_plain
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
+
+    sd = dict(state_dtype="bfloat16")
+    h, w = 25, 41
+    i0, i1, u0 = small_level()
+    for nwarps, k_check, max_iters, atol in ((1, 1, 2, 1e-5), (1, 1, 3, 5e-4),
+                                             (2, 8, 32, 2e-3)):
+        kw = dict(nwarps=nwarps, k_check=k_check, max_iters=max_iters, **sd)
+        got = tvl1_level_cuda(i0, i1, u0, **kw)
+        want = tvl1_level_plain(i0, i1, u0, **kw)
+        err = max_err(got, want)
+        case = f"{h}x{w} nwarps={nwarps} k_check={k_check} max_iters={max_iters}"
+        K2_VARIANTS.append({"case": case, "state_dtype": "bfloat16", "max_abs_err": err})
+        log(f"[3 parity] K2 bf16 duals {case}: max abs err {err:.3e} (atol {atol:g}), "
+            f"same bits {bool(torch.equal(got, want))}")
+        assert_close("K2 bf16", got, want, rtol=0.0, atol=atol)
+
+    a, b, u0 = half_level()
+    kw = dict(lambda_=0.25, nwarps=5, k_check=8, max_iters=300)
+    # bf16 and float32 in turns (float32, bf16, bf16, float32), then plain
+    k_ms, f_ms = timed_pair(lambda: tvl1_level_cuda(a, b, u0, **kw, **sd),
+                            lambda: tvl1_level_cuda(a, b, u0, **kw), 3, 3)
+    p_ms = cuda_ms(lambda: tvl1_level_plain(a, b, u0, **kw, **sd), 1)
+    d_ms = device_ms(lambda: tvl1_level_cuda(a, b, u0, **kw, **sd), 3)
+    ITERATIONS.reset()
+    got = no_host_sync(lambda: tvl1_level_cuda(a, b, u0, **kw, **sd))
+    iters = ITERATIONS.count
+    plain_iters = []
+    one_iter = tvl1_fused._one_iter
+    tvl1_fused._one_iter = lambda *args: plain_iters.append(1) or one_iter(*args)
+    try:
+        want = tvl1_level_plain(a, b, u0, **kw, **sd)
+    finally:
+        tvl1_fused._one_iter = one_iter
+    f32 = tvl1_level_cuda(a, b, u0, **kw)
+    epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
+    err = max_err(got, want)
+    epe32 = float(torch.linalg.vector_norm(got - f32, dim=-1).mean())
+    npx = a.numel()
+    b_ms, b_by = bound(iters * npx * K2_FLOPS_ITER + 5 * npx * K2_FLOPS_WARP, 24 * npx)
+    case = f"level {a.shape[0]}x{a.shape[1]} nwarps=5"
+    K2_VARIANTS.append({"case": case, "state_dtype": "bfloat16", "max_abs_err": err,
+                        "mean_epe": epe, "iterations": iters, "ms": k_ms, "device_ms": d_ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "float32_ms": f_ms})
+    log(f"[3 time] K2 bf16 duals {case}: kernel {k_ms:.3f} ms between events (float32 "
+        f"{f_ms:.3f} ms in the same turns), device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, "
+        f"bound {b_ms:.3f} ms ({b_by}; {iters} iterations) ({smi})")
+    log(f"[3 counts] K2 bf16 duals {case}: iterations kernel {iters}, plain "
+        f"{len(plain_iters)}; host reads in the level 0 (sync debug mode 'error')")
+    check(iters == len(plain_iters), "K2 bf16 540x960 level iteration count differs from plain")
+    log(f"[3 parity] K2 bf16 duals {case}: max abs err {err:.3e} (<= {K2_LEVEL_MAX:g}), "
+        f"mean EPE {epe:.2e} px (<= {K2_LEVEL_EPE:g}), same bits "
+        f"{bool(torch.equal(got, want))}; against the float32 level mean EPE {epe32:.3e} px")
+    check(err <= K2_LEVEL_MAX, f"K2 bf16 540x960 level max abs err {err}")
+    check(epe <= K2_LEVEL_EPE, f"K2 bf16 540x960 level mean EPE {epe} px")
+
+
 def phase_k3(smi):
     import torch
     from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
     from bwd_nlkalman_tpu_torch.flow.tvl1_block_cuda import LAUNCHES, tvl1_block_cuda
 
-    rng = np.random.default_rng(7)
     h, w = 25, 41
-    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
-    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
-    i0 = torch.from_numpy(np.ascontiguousarray(base[4:4 + h, 4:4 + w])).cuda()
-    i1 = torch.from_numpy(np.ascontiguousarray(base[2:2 + h, 5:5 + w])).cuda()
-    u0 = i0.new_zeros((h, w, 2))
+    i0, i1, u0 = small_level()
     worst = 0.0
     # the JAX suite's bars for its K2, at K3's block (two blocks per warp
     # stage) and at one iteration
@@ -935,10 +1038,15 @@ def phase_slice(smi):
 
 
 def phase_slice_bf16(smi, f32):
-    """Slice 1 with bf16 bands (``window_dtype="bfloat16"``) on the same 4
-    frames: flt2 and smo1 within 0.05 dB of the float32 run (the JAX
-    package's bf16 gate), K1 launched on every pass, none on the plain
-    route; frames/s beside the float32 run's and a profiled run."""
+    """Slice 1 on the same 4 frames in bfloat16: with bf16 bands
+    (``window_dtype="bfloat16"``), with bf16 duals in K2
+    (``FlowConfig(..., state_dtype="bfloat16")``), and with both (the
+    nearest the port comes to ``bench.py:35-36``, which also sets JAX's
+    warp taps to bf16, a deviation the port records). Each: flt2 and smo1
+    within 0.05 dB of the float32 run (the JAX package's bf16 gate), K1
+    launched as often as in the float32 run and never on the plain route,
+    K2 and K4 launched; frames/s beside the float32 run's and a profiled
+    run."""
     import torch
     from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
     from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
@@ -947,30 +1055,37 @@ def phase_slice_bf16(smi, f32):
     clean_np, noisy_np = make_clip(h, w, t, SIGMA)
     clean = torch.from_numpy(clean_np).cuda()
     noisy = torch.from_numpy(noisy_np).cuda()
-    model = NLKalmanDenoiser(SIGMA, h, w, FlowConfig(warm_start=True, warm_nwarps=3),
-                             window_dtype="bfloat16")
-    model(noisy[:2])            # warm-up
-    torch.cuda.synchronize()
-    counters = reset_counters()
-    PLAIN_PASSES.reset()
-    t0 = time.perf_counter()
-    flt1, flt2, smo1 = model(noisy)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    launches = read_counters(counters, "4b slice bf16", ("K1", "K2", "K4"))
-    for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
-        check(x.shape == noisy.shape and bool(torch.isfinite(x).all()), f"bf16 {name} bad")
-    p_2, p_s = psnr(clean, flt2), psnr(clean, smo1)
-    d2, ds = p_2 - f32["psnr"][0], p_s - f32["psnr"][1]
-    log(f"[4b slice bf16] 1080p gray T={t} bf16 bands: PSNR flt2 {p_2:.3f} smo1 {p_s:.3f} dB "
-        f"(float32 {f32['psnr'][0]:.3f} / {f32['psnr'][1]:.3f}; d {d2:+.4f} / {ds:+.4f}, "
-        f"|d| <= 0.05); plain-route passes {PLAIN_PASSES.count}")
-    log(f"[4b slice bf16] {secs:.3f} s, {t / secs:.3f} frames/s (float32 {f32['fps']:.3f}) "
-        f"({smi})")
-    check(abs(d2) <= 0.05 and abs(ds) <= 0.05, "bf16 slice PSNR off float32 by > 0.05 dB")
-    check(launches["K1"] == f32["launches"]["K1"], f"bf16 slice K1 ran {launches['K1']}")
-    check(PLAIN_PASSES.count == 0, "a bf16 slice pass took the plain route")
-    profile_slice(lambda: model(noisy), "4b slice bf16 profile", smi)
+    for what, window_dtype, state_dtype in (("bands", "bfloat16", "float32"),
+                                            ("duals", "float32", "bfloat16"),
+                                            ("bands and duals", "bfloat16", "bfloat16")):
+        tag = f"4b slice bf16 {what}"
+        model = NLKalmanDenoiser(SIGMA, h, w, FlowConfig(warm_start=True, warm_nwarps=3,
+                                                         state_dtype=state_dtype),
+                                 window_dtype=window_dtype)
+        model(noisy[:2])            # warm-up
+        torch.cuda.synchronize()
+        counters = reset_counters()
+        PLAIN_PASSES.reset()
+        t0 = time.perf_counter()
+        flt1, flt2, smo1 = model(noisy)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, tag, ("K1", "K2", "K4"))
+        for name, x in (("flt1", flt1), ("flt2", flt2), ("smo1", smo1)):
+            check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
+                  f"{tag}: {name} bad")
+        p_2, p_s = psnr(clean, flt2), psnr(clean, smo1)
+        d2, ds = p_2 - f32["psnr"][0], p_s - f32["psnr"][1]
+        log(f"[{tag}] 1080p gray T={t} window {window_dtype}, duals {state_dtype}: PSNR "
+            f"flt2 {p_2:.3f} smo1 {p_s:.3f} dB (float32 {f32['psnr'][0]:.3f} / "
+            f"{f32['psnr'][1]:.3f}; d {d2:+.4f} / {ds:+.4f}, |d| <= 0.05); plain-route "
+            f"passes {PLAIN_PASSES.count}")
+        log(f"[{tag}] {secs:.3f} s, {t / secs:.3f} frames/s (float32 {f32['fps']:.3f}) "
+            f"({smi})")
+        check(abs(d2) <= 0.05 and abs(ds) <= 0.05, f"{tag}: PSNR off float32 by > 0.05 dB")
+        check(launches["K1"] == f32["launches"]["K1"], f"{tag}: K1 ran {launches['K1']}")
+        check(PLAIN_PASSES.count == 0, f"{tag}: a pass took the plain route")
+        profile_slice(lambda: model(noisy), f"{tag} profile", smi)
 
 
 def profile_slice(run, tag, smi):
@@ -2005,6 +2120,25 @@ def sharded_flows(smi):
             check(occ_share <= OCC_SHARE, f"sharded occlusion {name} sp={sp} differs")
             check(warp_err <= 1e-3 and torch.equal(valid_s, valid_w),
                   f"K4 shard warps {name} sp={sp} off the whole-frame warp")
+    # slice 1's warm step with bf16 duals: K2's rounds and K4's constants in
+    # the bf16 rule's form on every shard, the same bits as the whole level
+    warm16 = dataclasses.replace(warm, state_dtype="bfloat16")
+    ITERATIONS.reset()
+    want = warm16.flow_warm(nz[2], nz[1], carry, bases=fb)[0]
+    w_iters = ITERATIONS.count
+    mesh = make_mesh(1, 2, ["cuda:0"] * 2)
+    ITERATIONS.reset()
+    STATS.reset()
+    got = warm16.flow_warm(nz[2], nz[1], carry, bases=fb, mesh=mesh)[0]
+    iters = ITERATIONS.count
+    epe32 = float(torch.linalg.vector_norm(want - flows[0], dim=-1).mean())
+    log(f"[14 sharded flow] 1080p gray slice 1 warm fscale=1 with bf16 duals sp=2 on cuda:0 "
+        f"x 2: same bits as the whole-frame bf16 step {bool(torch.equal(got, want))} (max abs "
+        f"{max_err(got, want):.3e}); iterations K2 {iters} (whole {w_iters}); levels sharded "
+        f"{sorted(set(STATS.levels_sharded))}; the bf16 step against the float32 step mean "
+        f"EPE {epe32:.3e} px ({smi})")
+    check(bool(torch.equal(got, want)), "sharded bf16 warm step differs from the whole frame's")
+    check(STATS.rounds["k2"] > 0, "sharded bf16 warm step ran no K2 round")
     shard_kernels(nz, fb, prevs, flows, smi)
     torch.cuda.empty_cache()
 
@@ -2053,33 +2187,38 @@ def shard_kernels(nz, fb, prevs, flows, smi):
     a, b = tvl1._prep_pair(nz[1], nz[0], fb)
     warm, cold = flows
     rows = {}
-    for name, (img0, img1), u, k, k2 in (
-            ("K2 round of 8, 540x960 level", (tvl1.zoom_out(a, 0.5, fb),
-                                              tvl1.zoom_out(b, 0.5, fb)),
-             0.5 * warm[::2, ::2], 8, True),
-            ("K3 round of 24, 1080x1920 level", (a, b), cold, 24, False)):
+    half = (tvl1.zoom_out(a, 0.5, fb), tvl1.zoom_out(b, 0.5, fb))
+    for name, (img0, img1), u, k, k2, sd in (
+            ("K2 round of 8, 540x960 level", half, 0.5 * warm[::2, ::2], 8, True, "float32"),
+            ("K2 round of 8 with bf16 duals, 540x960 level", half, 0.5 * warm[::2, ::2], 8,
+             True, "bfloat16"),
+            ("K3 round of 24, 1080x1920 level", (a, b), cold, 24, False, "float32")):
         h, w = img0.shape
         kern, plain = ((tvl1_level_round_cuda, tvl1_level_round_plain) if k2 else
                        (tvl1_stage_round_cuda, tvl1_stage_round_plain))
+        if sd == "bfloat16":
+            kern, plain = (functools.partial(f, state_dtype=sd) for f in (kern, plain))
         i1s = torch.stack([img1, *centered_gradient(img1)], -1)
         st0 = torch.cat([u.permute(2, 0, 1).contiguous(), img0.new_zeros((4, h, w))])
         state = plain(st0, tvl1_stage_consts(i1s, st0, img0, "plain", nig=k2), k, 0, h,
                       (0, 0))[0]
         errs = {"consts": 0.0, "own": 0.0, "sum": 0.0}
+        same = {"consts": True, "own": True}
         for sp in (2, 3, 4):
             ctl = RoundCtl(sp, a.device, 0.01, h, w)
             for i, (r0, r1) in enumerate(row_bounds(h, sp)):
                 e0, e1 = max(0, r0 - k), min(h, r1 + k)
                 halo = (r0 - e0, e1 - r1)
                 blk, i0b = state[:, e0:e1].contiguous(), img0[e0:e1].contiguous()
-                cs = tvl1_stage_consts(i1s, blk, i0b, y0=e0, nig=k2)
+                cs = tvl1_stage_consts(i1s, blk, i0b, y0=e0, nig=k2, state_dtype=sd)
                 cs_p = tvl1_stage_consts(i1s, blk, i0b, "plain", y0=e0, nig=k2)
                 if k2:
                     cs_h, cs_ph = _nig_as_grad(cs), _nig_as_grad(cs_p)
                 else:
                     cs_h, cs_ph = cs, cs_p
                 errs["consts"] = max(errs["consts"], max_err(cs_h, cs_ph))
-                assert_close(f"K4 TV-L1 entry {'nig' if k2 else 'grad'} {h}x{w} sp={sp} "
+                same["consts"] &= bool(torch.equal(cs, cs_p))
+                assert_close(f"K4 TV-L1 entry {'nig' if k2 else 'grad'} {sd} {h}x{w} sp={sp} "
                              f"shard {i} (y0 {e0})", cs_h, cs_ph, rtol=1e-5, atol=1e-3)
                 want, want_s = plain(blk, cs, k, e0, h, halo)
                 got = kern(blk.clone(), cs, k, e0, h, halo, ctl, i, 0)
@@ -2087,25 +2226,27 @@ def shard_kernels(nz, fb, prevs, flows, smi):
                 got_s = float(ctl.sums[0, i])
                 check(float(want_s) > 0.0, f"{name} sp={sp} shard {i}: no update")
                 errs["own"] = max(errs["own"], max_err(got[:, own], want[:, own]))
+                same["own"] &= bool(torch.equal(got[:, own], want[:, own]))
                 errs["sum"] = max(errs["sum"], abs(got_s - float(want_s)) / float(want_s))
                 assert_close(f"{name} sp={sp} shard {i} owned rows", got[:, own], want[:, own],
                              rtol=0.0, atol=SHARD_OWN_ATOL)
                 check(abs(got_s - float(want_s)) <= SHARD_SUM_RTOL * float(want_s),
                       f"{name} sp={sp} shard {i}: sum {got_s} against {float(want_s)}")
         log(f"[14 shard kernels] {name}, every shard of sp 2-4 from a mid-level state: K4 "
-            f"TV-L1 entry ({'K2' if k2 else 'K3'} form) max abs {errs['consts']:.3e} (rtol "
-            f"1e-5, atol 1e-3), owned rows max abs {errs['own']:.3e} (<= {SHARD_OWN_ATOL:g}), "
-            f"owned sums rel err {errs['sum']:.2e} (<= {SHARD_SUM_RTOL:g})")
+            f"TV-L1 entry ({'K2' if k2 else 'K3'} form, {sd}) max abs {errs['consts']:.3e} "
+            f"(rtol 1e-5, atol 1e-3; same bits {same['consts']}), owned rows max abs "
+            f"{errs['own']:.3e} (<= {SHARD_OWN_ATOL:g}; same bits {same['own']}), owned sums "
+            f"rel err {errs['sum']:.2e} (<= {SHARD_SUM_RTOL:g})")
         e1 = h // 2 + k
         blk, i0b = state[:, :e1].contiguous(), img0[:e1].contiguous()
-        cs = tvl1_stage_consts(i1s, blk, i0b, nig=k2)
+        cs = tvl1_stage_consts(i1s, blk, i0b, nig=k2, state_dtype=sd)
         ctl = RoundCtl(2, a.device, 0.01, h, w)
         k_ms, p_ms = timed_pair(lambda: kern(blk, cs, k, 0, h, (0, k), ctl, 0, 0),
                                 lambda: plain(blk, cs, k, 0, h, (0, k)), 20, 1)
         npx = e1 * w
         rows[name] = (k_ms, p_ms, *bound(k * npx * (K2_FLOPS_ITER if k2 else K3_FLOPS_ITER),
                                          64 * npx))
-        if k2:
+        if k2 and sd == "float32":
             k_ms, p_ms = timed_pair(lambda: tvl1_stage_consts(i1s, blk, i0b, nig=True),
                                     lambda: tvl1_stage_consts(i1s, blk, i0b, "plain", nig=True),
                                     50, 2)
@@ -2276,7 +2417,8 @@ def main() -> int:
         log(f"[{name}] phase took {time.perf_counter() - t0:.1f} s")
         return out
 
-    for phase in (phase_k1, phase_k1_widened, phase_k2, phase_k3, phase_k4, phase_p):
+    for phase in (phase_k1, phase_k1_widened, phase_k2, phase_k2_bf16, phase_k3, phase_k4,
+                  phase_p):
         timed(f"3 {phase.__name__}", phase, smi)
     slice1 = timed("4 slice", phase_slice, smi)
     timed("4b slice bf16", phase_slice_bf16, smi, slice1)
@@ -2300,7 +2442,8 @@ def main() -> int:
          "max_abs_err": PARITY[k], "ms": TIMES[k][0], "device_ms": TIMES[k][2],
          "plain_ms": TIMES[k][1],
          "bound_ms": BOUNDS[k][0], "bound_by": BOUNDS[k][1], "library_ms": None,
-         **({"variants": K1_VARIANTS} if k == "K1" else {})}
+         **({"variants": {"K1": K1_VARIANTS, "K2": K2_VARIANTS}[k]}
+            if k in ("K1", "K2") else {})}
         for k in KERNELS]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,7 @@ file imports no JAX.
 """
 
 import dataclasses
+import functools
 
 import numpy as np
 import pytest
@@ -193,6 +194,41 @@ def test_tvl1_level_kernel_matches_plain(dev, nwarps, k_check, max_iters, atol):
     torch.testing.assert_close(tvl1_level_cuda(i0, i1, u0, **kw),
                                tvl1_level_plain(i0, i1, u0, **kw),
                                rtol=0.0, atol=atol)
+
+
+@pytest.mark.parametrize("nwarps,k_check,max_iters", [(1, 1, 2), (1, 1, 3), (2, 8, 32)])
+def test_tvl1_level_kernel_bf16_matches_plain(dev, nwarps, k_check, max_iters):
+    """K2 with bfloat16 duals gives its plain version's bits: its rule
+    rounds every operation on its own in the plain version's order, the
+    warp stage's constants too. Rounds of one iteration (u depends on the
+    rounded duals from the second on) and two warp stages of rounds of 8;
+    the float32 level differs."""
+    h, w = 25, 41
+    i0, i1 = _level_pair(dev, h, w)
+    u0 = torch.zeros((h, w, 2), device=dev)
+    kw = dict(nwarps=nwarps, k_check=k_check, max_iters=max_iters)
+    want = tvl1_level_plain(i0, i1, u0, state_dtype="bfloat16", **kw)
+    assert torch.equal(tvl1_level_cuda(i0, i1, u0, state_dtype="bfloat16", **kw), want)
+    assert not torch.equal(tvl1_level_plain(i0, i1, u0, **kw), want)
+
+
+@pytest.mark.parametrize("h,w", [(25, 41), (270, 480)])
+@pytest.mark.parametrize("band", [False, True])
+def test_warp_tvl1_consts_kernel_bf16_form_matches_plain(dev, h, w, band):
+    """K4's TV-L1 entry in the form of K2's bfloat16 rule (each operation
+    rounded on its own) gives ``tvl1_stage_consts_plain``'s bits, whole
+    and on a row block."""
+    rng = np.random.default_rng(9)
+    i0, i1 = _level_pair(dev, h, w)
+    i1s = torch.stack([i1, *tvl1_tiled.centered_gradient(i1)], -1)
+    state = _t(rng.normal(0, 0.3, (6, h, w)).astype(np.float32), dev)
+    state[:2] = _t(np.moveaxis(noisy_flow(rng, h, w, band), -1, 0), dev)
+    got = warp_cuda.warp_tvl1_consts_cuda(i1s, state, i0, nig=True, state_dtype="bfloat16")
+    assert torch.equal(got, tvl1_tiled.tvl1_stage_consts_plain(i1s, state, i0, nig=True))
+    r0 = h // 3
+    blk = state[:, r0:].contiguous()
+    assert torch.equal(warp_cuda.warp_tvl1_consts_cuda(i1s, blk, i0[r0:].contiguous(), r0,
+                                                       True, "bfloat16"), got[:, r0:])
 
 
 @pytest.mark.parametrize("h,w", [(25, 41), (270, 480)])
@@ -417,7 +453,7 @@ def test_sharded_frame_passes_on_one_card(dev):
                                rtol=1e-4, atol=2e-3)
 
 
-@pytest.mark.parametrize("rule", ["k2", "k3"])
+@pytest.mark.parametrize("rule", ["k2", "k3", "k2-bf16"])
 @pytest.mark.parametrize("k", [4, 8, 10, 24])
 @pytest.mark.parametrize("sp", [1, 2, 3])
 def test_tvl1_round_kernels_match_plain(dev, sp, k, rule):
@@ -427,7 +463,7 @@ def test_tvl1_round_kernels_match_plain(dev, sp, k, rule):
     within 2e-3 (k iterations, as the blocks of the JAX suite's bar; the
     halo rows are the neighbours' to fill), the owned rows' sum (the
     shard's slot) within rtol 1e-3, the device count once per running
-    round. The stop-or-go as ``RoundCtl.go`` takes it: a later round whose
+    round; K2's with bfloat16 duals ("k2-bf16") under the same bars. The stop-or-go as ``RoundCtl.go`` takes it: a later round whose
     previous sums are under epsilon squared runs nothing and clears the
     flag, which keeps the next round from running even above the bar,
     until a round 0 sets it again."""
@@ -439,10 +475,13 @@ def test_tvl1_round_kernels_match_plain(dev, sp, k, rule):
     state = _t(rng.normal(0, 0.5, (6, h, w)).astype(np.float32), dev)
     consts = _t(rng.normal(0, 1, (4, h, w)).astype(np.float32), dev)
     g = consts[0] ** 2 + consts[1] ** 2
-    is_k2 = rule == "k2"
+    is_k2 = rule.startswith("k2")
     consts[2] = -1.0 / g if is_k2 else g
     kernel = k2.tvl1_level_round_cuda if is_k2 else k3.tvl1_stage_round_cuda
     plain = tvl1_fused.tvl1_level_round_plain if is_k2 else tvl1_tiled.tvl1_stage_round_plain
+    if rule == "k2-bf16":
+        sd = dict(state_dtype="bfloat16")
+        kernel, plain = (functools.partial(kernel, **sd), functools.partial(plain, **sd))
     counter = k2.ITERATIONS if is_k2 else k3.LAUNCHES
     count = k if is_k2 else 1
     ctl = RoundCtl(sp, dev, 0.01, h, w)
@@ -531,3 +570,22 @@ def test_sharded_flow_on_one_card(dev):
         assert k2.LAUNCHES.count > 0
         epe = float(torch.linalg.vector_norm(got - want, dim=-1).mean())
         assert epe <= 1e-4 and float((got - want).abs().max()) <= 1e-2
+
+
+def test_sharded_flow_bf16_on_one_card(dev):
+    """With bfloat16 duals the row-sharded flow on ``[cuda:0] * 2`` gives the
+    whole-frame flow's bits: K2's rounds and K4's constants in the bf16
+    rule's form compute every pixel as the whole level does."""
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.parallel import make_mesh, sharded_tvl1_flow
+
+    rng = np.random.default_rng(4)
+    h, w = 540, 960
+    base = np.cumsum(np.cumsum(rng.normal(size=(h + 8, w + 8)), 0), 1)
+    base = ((base - base.min()) / (base.max() - base.min()) * 255).astype(np.float32)
+    i0, i1 = _t(base[4:4 + h, 4:4 + w], dev), _t(base[5:5 + h, 6:6 + w], dev)
+    kw = dict(fscale=1, lambda_=0.25, state_dtype="bfloat16")
+    want = tvl1.tvl1_flow(i0, i1, **kw)
+    k2.LAUNCHES.reset()
+    got = sharded_tvl1_flow(i0, i1, make_mesh(1, 2, ["cuda:0"] * 2), **kw)
+    assert k2.LAUNCHES.count > 0 and torch.equal(got, want)

@@ -133,17 +133,21 @@ def test_sharded_flow_tiled_levels(sp, monkeypatch):
     assert float((got - want).abs().max()) <= FLOW_TOL
 
 
-@pytest.mark.parametrize("k2", [True, False], ids=["k2", "k3"])
-def test_round_blocks_sum_to_whole_round(k2):
+@pytest.mark.parametrize("k2,state_dtype", [(True, "float32"), (False, None),
+                                             (True, "bfloat16")],
+                         ids=["k2", "k3", "k2-bf16"])
+def test_round_blocks_sum_to_whole_round(k2, state_dtype):
     """Both rules' plain rounds on three row blocks with a halo of k rows:
     each block's own rows equal the whole frame's round, and the owned
-    sums add up to the whole frame's."""
+    sums add up to the whole frame's. K2's with bfloat16 duals too: the
+    rounding is pointwise."""
     rng = np.random.default_rng(3)
     h, w, k = 40, 24, 6
     state = torch.from_numpy(rng.normal(size=(6, h, w)).astype(np.float32))
     consts = torch.from_numpy(rng.normal(size=(4, h, w)).astype(np.float32))
     consts[2] = consts[2].abs() if not k2 else -consts[2].abs()
-    rnd = tvl1_fused.tvl1_level_round_plain if k2 else tvl1_tiled.tvl1_stage_round_plain
+    rnd = (functools.partial(tvl1_fused.tvl1_level_round_plain, state_dtype=state_dtype)
+           if k2 else tvl1_tiled.tvl1_stage_round_plain)
     whole, s_whole = rnd(state, consts, k, 0, h, (0, 0))
     total = 0.0
     for r0, r1 in pflow.row_bounds(h, 3):
@@ -154,6 +158,28 @@ def test_round_blocks_sum_to_whole_round(k2):
     assert total == pytest.approx(float(s_whole), rel=1e-6)
     with pytest.raises(ValueError):
         rnd(state[:, 10:30], consts[:, 10:30], k, 10, h, (k - 1, k))
+
+
+@pytest.mark.parametrize("warm", [False, True], ids=["cold", "warm"])
+def test_sharded_flow_bf16_duals(warm):
+    """With bfloat16 duals the sharded flow (K2's rounds on sp=2's blocks)
+    gives the whole-frame bf16 flow, cold and warm; both differ from the
+    float32 flows, so the type reached the rounds."""
+    i0, i1 = _torch_pair()
+    mesh, kw = _mesh(2), dict(KW, state_dtype="bfloat16")
+    pflow.STATS.reset()
+    if warm:
+        carry = torch.from_numpy(_jax_flows()[1].copy())
+        got, _ = parallel.sharded_tvl1_flow_warm(i0, i1, carry, mesh, warm_nwarps=3, **kw)
+        want, _ = tvl1.tvl1_flow_warm(i0, i1, carry, warm_nwarps=3, **kw)
+        f32, _ = tvl1.tvl1_flow_warm(i0, i1, carry, warm_nwarps=3, **KW)
+    else:
+        got = parallel.sharded_tvl1_flow(i0, i1, mesh, **kw)
+        want = tvl1.tvl1_flow(i0, i1, **kw)
+        f32 = tvl1.tvl1_flow(i0, i1, **KW)
+    assert (48, 64, 2) in pflow.STATS.levels_sharded and pflow.STATS.rounds["k2"] > 0
+    assert float((got - want).abs().max()) <= FLOW_TOL
+    assert float((want - f32).abs().max()) > 1e-3
 
 
 def test_round_ctl_rule():
