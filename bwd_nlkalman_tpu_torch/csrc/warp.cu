@@ -35,12 +35,26 @@
 //   a few loads (float2 for even C) and the taps stay in registers
 //   (warp_tap.cuh);
 // - 9 channels, fsmo's warp of an RGB clip (flt1|flt2|smo, each 3), have
-//   an instance of their own rather than a split into launches of at most
-//   8: one launch computes the one validity mask that all three priors
-//   share, so no two parts can disagree on it, and every tap's 9 channels
-//   are read by the same thread (36 B apart, in the line its first
-//   channel opened); a split would read the flow and occlusion twice and
-//   write the mask twice. Like 6, it is built for 4 blocks an SM;
+//   an instance of their own: every tap's 9 channels are read by the same
+//   thread (36 B apart, in the line its first channel opened). Like 6, it
+//   is built for 4 blocks an SM;
+// - any count past 9 in one launch, by channel groups: the grid's third
+//   dimension runs over groups of kK4GenericC channels (the last one
+//   holds the rest), each block the generic instance on its group's
+//   channels c0 .. c0 + n - 1 of every tap, read at the pixel stride c
+//   from the interleaved (H, W, C) image, float2 loads where c is even
+//   (then so is every group's first channel and width). Every group runs
+//   the same footprint test on the same flow and occlusion; group 0
+//   alone writes the mask. So one launch computes the one validity mask
+//   that all the priors it warps share (fsmo's flt1|flt2|smo of a
+//   4-channel clip is 12, the filter's pair of a 5-7-channel one 10-14),
+//   as the 9-channel instance does, and no two parts can disagree on it;
+//   each group reads the flow and occlusion again, 12 B a pixel a group
+//   beside its 4 x 16 x n B of taps. A launch of 9 or fewer is one group:
+//   the instances above, unchanged. A group gives the bits of the
+//   one-group launch of its channels where that launch is the generic
+//   instance too (4, 5, 7 or 8 channels), not those of the instances of
+//   1, 2, 3 and 6, which the compiler contracts otherwise;
 // - the mask written as the bytes of a torch.bool tensor: no second
 //   kernel;
 // - the TV-L1 entry reads u1 and u2 straight from the solver's (6, H, W)
@@ -86,8 +100,11 @@ constexpr int min_blocks() {
 // K2's for its bfloat16 rule (every operation rounded on its own): flow
 // from the planar state, the constants written planar; 0 the warp:
 // interleaved flow in, out and the bool mask written. Output rows are the
-// frame's rows y0 .. y0 + hb - 1; the source im holds all h rows.
-template <int C, int kConsts>
+// frame's rows y0 .. y0 + hb - 1; the source im holds all h rows. The
+// generic instance (C == 0) computes the channels c0 .. c0 + n - 1 of
+// the c_rt-channel image, its group blockIdx.z of kK4GenericC channels;
+// kPair: its taps and outputs as float2.
+template <int C, int kConsts, bool kPair = false>
 __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
     warp_tile_kernel(const float* __restrict__ im, const float* __restrict__ flow,
                      const float* __restrict__ aux, float* __restrict__ out,
@@ -95,10 +112,12 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
                      int hb) {
   constexpr int CA = C > 0 ? C : kK4GenericC;
   const int c = C > 0 ? C : c_rt;
+  const int c0 = C > 0 ? 0 : (int)blockIdx.z * kK4GenericC;
+  const int n = C > 0 ? C : min(kK4GenericC, c - c0);
   const int x = blockIdx.x * kTileW + threadIdx.x;
   const int ly0 = blockIdx.y * kTileH + threadIdx.y;
   const size_t hw = (size_t)hb * w;
-  const auto taps = k4_global_taps<C, CA>(im, w, c);
+  const auto taps = k4_global_taps<C, CA, kPair>(im + c0, w, c, n);
 #pragma unroll
   for (int q = 0; q < kPY; ++q) {
     const int ly = ly0 + q * kTY, y = y0 + ly;
@@ -115,7 +134,7 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
     }
     const bool live = kConsts != 0 || aux == nullptr || aux[idx] == 0.0f;
     float res[CA];
-    const bool ok = k4_sample<C, CA, kConsts == 3>((float)x + u, (float)y + v, h, w, c, live,
+    const bool ok = k4_sample<C, CA, kConsts == 3>((float)x + u, (float)y + v, h, w, n, live,
                                                    taps, res);
     if constexpr (kConsts == 1) {
       // the eager composition's order and rounding, no contraction
@@ -129,26 +148,30 @@ __global__ void __launch_bounds__(kTX * kTY, min_blocks<C>())
       // K2's own constants (bicubic.cuh), rounded as its level kernel's
       bnlk_k2_consts<kConsts == 3>(res[0], res[1], res[2], u, v, aux[idx], out + idx, hw);
     } else {
-      float* o = out + idx * c;
-      if constexpr (C > 0 && C % 2 == 0) {
+      float* o = out + idx * c + c0;
+      if constexpr ((C > 0 && C % 2 == 0) || (C == 0 && kPair)) {
 #pragma unroll
-        for (int ch = 0; ch < C; ch += 2)
-          *reinterpret_cast<float2*>(o + ch) = make_float2(res[ch], res[ch + 1]);
+        for (int ch = 0; ch < CA; ch += 2)
+          if (C > 0 || ch < n)
+            *reinterpret_cast<float2*>(o + ch) = make_float2(res[ch], res[ch + 1]);
       } else {
 #pragma unroll
         for (int ch = 0; ch < CA; ++ch)
-          if (C > 0 || ch < c) o[ch] = res[ch];
+          if (C > 0 || ch < n) o[ch] = res[ch];
       }
-      valid[idx] = ok ? 1 : 0;
+      if (C > 0 || c0 == 0) valid[idx] = ok ? 1 : 0;
     }
   }
 }
 
-template <int C, int kConsts>
+// The grid's third dimension runs over the generic instance's channel
+// groups; an instance of C > 0 is one group.
+template <int C, int kConsts, bool kPair = false>
 int launch(const float* im, const float* flow, const float* aux, float* out,
            uint8_t* valid, int h, int w, int c, int y0, int hb, cudaStream_t stream) {
-  const dim3 grid((w + kTileW - 1) / kTileW, (hb + kTileH - 1) / kTileH);
-  warp_tile_kernel<C, kConsts><<<grid, dim3(kTX, kTY), 0, stream>>>(
+  const dim3 grid((w + kTileW - 1) / kTileW, (hb + kTileH - 1) / kTileH,
+                  C > 0 ? 1 : (c + kK4GenericC - 1) / kK4GenericC);
+  warp_tile_kernel<C, kConsts, kPair><<<grid, dim3(kTX, kTY), 0, stream>>>(
       im, flow, aux, out, valid, h, w, c, y0, hb);
   return (int)cudaGetLastError();
 }
@@ -164,11 +187,13 @@ bool bad_args(const void* im, const void* flow, int h, int w, int y0, int hb) {
 
 // im (H, W, C) interleaved, flow (hb, W, 2), occl (hb, W) or null, for
 // the frame's rows y0 .. y0 + hb - 1; writes out (hb, W, C) and valid
-// (hb, W) bytes 0/1. y0 = 0, hb = H: the whole frame.
+// (hb, W) bytes 0/1. y0 = 0, hb = H: the whole frame. Any C >= 1: past
+// kK4OneGroupC, groups of kK4GenericC channels in the same launch.
 extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
-                         void* out, void* valid, int h, int w, int c, int y0,
-                         int hb, void* stream) {
-  if (c < 1 || c > kK4MaxC || bad_args(im, flow, h, w, y0, hb))
+                         void* out, void* valid, int h, int w, int c, int y0, int hb,
+                         void* stream) {
+  if (c < 1 || (c + kK4GenericC - 1) / kK4GenericC > 65535 ||
+      bad_args(im, flow, h, w, y0, hb))
     return (int)cudaErrorInvalidValue;
   const auto* i = (const float*)im;
   const auto* f = (const float*)flow;
@@ -176,6 +201,10 @@ extern "C" int bnlk_warp(const void* im, const void* flow, const void* occl,
   auto* r = (float*)out;
   auto* v = (uint8_t*)valid;
   auto s = (cudaStream_t)stream;
+  if (c > kK4OneGroupC) {
+    return c % 2 == 0 ? launch<0, 0, true>(i, f, o, r, v, h, w, c, y0, hb, s)
+                      : launch<0, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
+  }
   switch (c) {
     case 1: return launch<1, 0>(i, f, o, r, v, h, w, c, y0, hb, s);
     case 2: return launch<2, 0>(i, f, o, r, v, h, w, c, y0, hb, s);

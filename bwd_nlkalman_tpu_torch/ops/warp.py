@@ -87,8 +87,10 @@ def bicubic_sample(im: torch.Tensor, uu: torch.Tensor, vv: torch.Tensor,
 
 
 def bicubic_warp(im, flow, occl=None, engine: str = "auto", y0: int = 0):
-    """K4 on CUDA tensors, its plain version on CPU tensors; given ``y0``,
-    the rows y0 .. y0 + hb - 1 of the frame that ``flow`` (hb, W, 2) covers.
+    """K4 on CUDA tensors, its plain version on CPU tensors, at any channel
+    count (K4 covers every channel in one launch, in channel groups past
+    9); given ``y0``, the rows y0 .. y0 + hb - 1 of the frame that
+    ``flow`` (hb, W, 2) covers.
 
     ``engine="plain"`` runs the plain version on any device."""
     if use_kernel(im, engine):
@@ -98,7 +100,8 @@ def bicubic_warp(im, flow, occl=None, engine: str = "auto", y0: int = 0):
 
 def warp_bicubic_nan(im: torch.Tensor, flow: torch.Tensor,
                      occl: torch.Tensor | None = None, engine: str = "auto"):
-    """Warp the (H, W, C) or (H, W) frame ``im`` along ``flow``; (warped, valid).
+    """Warp the (H, W, C) or (H, W) frame ``im``, of any channel count,
+    along ``flow``; (warped, valid), one mask for every channel.
 
     valid is False where the reference would produce NaN: occluded
     pixels, or any of the 4x4 taps outside the frame (src/nlkalman.c:29-34).

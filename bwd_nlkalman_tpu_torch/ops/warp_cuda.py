@@ -6,6 +6,14 @@ Its plain PyTorch versions are
 :func:`bwd_nlkalman_tpu_torch.flow.tvl1_tiled.tvl1_stage_consts_plain`
 (the TV-L1 entry: a warp stage's constants, from the same launch).
 
+The warp takes any channel count in one launch. Up to 9 channels are one
+group, each count its instance of the kernel (1, 2, 3, 6 and 9 their own,
+the rest the generic one); past 9 the launch covers the channels in
+groups of 8, one grid plane a group, all computing the same validity
+mask, written once (:func:`channel_groups` is the plan the launch
+takes). ``LAUNCHES_C9`` and ``LAUNCHES_GROUPED`` count the 9-channel and
+the grouped launches among ``LAUNCHES``.
+
 Both entries have a shard form (``parallel/flow.py``): given ``y0``, the
 flow (or state), occlusion, i0 and outputs hold rows ``y0 .. y0 + hb - 1``
 of the frame, and the source image holds the whole frame.
@@ -20,17 +28,27 @@ import torch
 from .._build import call, stream_ptr
 from .._dispatch import LaunchCounter, check_state_dtype, check_tensor
 
-MAX_C = 9          # channels the kernel takes (kK4MaxC, csrc/warp_tap.cuh)
+ONE_GROUP_C = 9    # the most channels one group covers (kK4OneGroupC, csrc/warp_tap.cuh)
+GROUP_C = 8        # the channels of each group past that (kK4GenericC)
 
-LAUNCHES = LaunchCounter()     # wrapper calls, both entries
-LAUNCHES_C9 = LaunchCounter()  # of those, warps of 9 channels (fsmo on RGB)
+LAUNCHES = LaunchCounter()          # wrapper calls, both entries
+LAUNCHES_C9 = LaunchCounter()       # of those, warps of 9 channels (fsmo on RGB)
+LAUNCHES_GROUPED = LaunchCounter()  # and warps in more than one channel group
 
 
-def _check_frame(h: int, w: int, c: int) -> None:
+def channel_groups(c: int) -> list[tuple[int, int]]:
+    """(first channel, count) of each channel group of a K4 warp of ``c``
+    channels, in launch order: one group up to ``ONE_GROUP_C``, groups of
+    ``GROUP_C`` past it, the last holding the rest."""
+    if c < 1:
+        raise ValueError(f"K4 takes 1 or more channels, got {c}")
+    width = c if c <= ONE_GROUP_C else GROUP_C
+    return [(c0, min(width, c - c0)) for c0 in range(0, c, width)]
+
+
+def _check_frame(h: int, w: int) -> None:
     if h < 1 or w < 1:
         raise ValueError(f"empty frame {h}x{w}")
-    if not 1 <= c <= MAX_C:
-        raise ValueError(f"K4 supports 1..{MAX_C} channels, got {c}")
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -48,9 +66,11 @@ def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
                       occl: torch.Tensor | None = None, y0: int = 0):
     """Kernel version of ``bicubic_warp_plain``: (out (hb, W, C), valid (hb,
     W)) for the frame's rows y0 .. y0 + hb - 1, where flow is (hb, W, 2)
-    (the whole frame by default)."""
+    (the whole frame by default), in one launch of the channel groups
+    ``channel_groups(C)``."""
     h, w, c = im.shape
-    _check_frame(h, w, c)
+    _check_frame(h, w)
+    groups = channel_groups(c)
     hb = flow.shape[0]
     _check_rows(y0, hb, h)
     dev = im.device
@@ -69,6 +89,8 @@ def bicubic_warp_cuda(im: torch.Tensor, flow: torch.Tensor,
     LAUNCHES.add()
     if c == 9:
         LAUNCHES_C9.add()
+    if len(groups) > 1:
+        LAUNCHES_GROUPED.add()
     return out, valid
 
 
@@ -87,7 +109,7 @@ def warp_tvl1_consts_cuda(i1s: torch.Tensor, state: torch.Tensor,
     check_state_dtype(state_dtype)
     h, w = i1s.shape[:2]
     hb = i0.shape[0]
-    _check_frame(h, w, 3)
+    _check_frame(h, w)
     _check_rows(y0, hb, h)
     dev = i0.device
     if dev.type != "cuda":

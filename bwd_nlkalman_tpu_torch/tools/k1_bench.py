@@ -1,12 +1,13 @@
-"""Time K1, the NL-Kalman pass kernel, at 1080p gray on one card, and
-compare two checkouts in turns.
+"""Time K1, the NL-Kalman pass kernel, at 1080p on one card, and compare
+two checkouts in turns.
 
-    python3 bwd_nlkalman_tpu_torch/tools/k1_bench.py [--against DIR]
+    python3 bwd_nlkalman_tpu_torch/tools/k1_bench.py [--against DIR] [--channels C]
 
 Each turn is a worker process that imports ``bwd_nlkalman_tpu_torch``
 from one checkout's root, builds that checkout's kernels and times K1's
-four 1080p gray passes at sigma=20 (flt1 on a first frame, flt1, flt2,
-smo1): the whole pass between CUDA events (mean of 10 after a
+four 1080p passes at sigma=20 (flt1 on a first frame, flt1, flt2, smo1),
+gray or on frames of ``--channels`` channels (1-7, as K1 takes them):
+the whole pass between CUDA events (mean of 10 after a
 warm-up), and each stage's device time (the DCT, site, aggregation and
 fold kernels) from torch.profiler. With
 ``--against DIR`` (another checkout, for example the parent commit
@@ -258,8 +259,9 @@ def stage_ms(fn, reps: int) -> dict | None:
     return {k: by.get(k, 0.0) / reps for k in STAGES}
 
 
-def worker(root: str) -> dict:
-    """Time one checkout's K1 (imported from ``root``) on the card."""
+def worker(root: str, channels: int = 1) -> dict:
+    """Time one checkout's K1 (imported from ``root``) on the card, on
+    frames of ``channels`` channels."""
     sys.path.insert(0, root)
     import torch
     from bwd_nlkalman_tpu_torch import _build
@@ -272,7 +274,7 @@ def worker(root: str) -> dict:
     _build.library()
     rng = np.random.default_rng(0)
     cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
-                               for a in nlk_inputs(rng, *FULL, 1))
+                               for a in nlk_inputs(rng, *FULL, channels))
     kb = make_bases(nlk_bases(8), "cuda")
     res = {}
     for name, args in pass_args(cur, prev, valid, basic, kb).items():
@@ -282,7 +284,8 @@ def worker(root: str) -> dict:
     res["bands"] = {"digest": digest(*(band_f32(x, 8, kb["dct_8"])
                                        for x in (cur, prev, basic)))}
     return {"root": os.path.relpath(root, ROOT) if root != ROOT else ".",
-            "card": card(), "torch": torch.__version__, "passes": res}
+            "card": card(), "torch": torch.__version__, "channels": channels,
+            "passes": res}
 
 
 def digest(*tensors) -> str:
@@ -337,16 +340,18 @@ def k1_bands():
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--against", help="another checkout's root, timed in turns")
+    ap.add_argument("--channels", type=int, default=1, help="channels of the frames (1-7)")
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     a = ap.parse_args(argv)
     if a.worker:
-        print(json.dumps(worker(os.path.abspath(a.worker))), flush=True)
+        print(json.dumps(worker(os.path.abspath(a.worker), a.channels)), flush=True)
         return 0
     roots = [ROOT] if not a.against else [a.against, ROOT, ROOT, a.against]
     runs = []
     for r in roots:
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                              os.path.abspath(r)],
+                              os.path.abspath(r)]
+                             + (["--channels", str(a.channels)] if a.channels != 1 else []),
                              capture_output=True, text=True)
         if out.returncode != 0:
             sys.stderr.write(out.stdout + out.stderr)

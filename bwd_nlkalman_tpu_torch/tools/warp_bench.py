@@ -19,7 +19,11 @@ main path's warps:
   checkout has it, else the composition of K4 and eager ops that the
   checkout's ``tvl1_single_scale_tiled`` runs;
 
-each along three flows, named ``<case>/<flow>``: ``tvl1``, the flow the
+each along three flows, named ``<case>/<flow>``, and
+``c<C>_occl_1080p/tvl1``, 1080x1920 with C = 4-10, 12 and 14 channels
+and the occlusion mask (the generic instance, the instances of 6 and 9,
+and past 9 the launches in channel groups: the filter's and fsmo's warps
+of 4-7-channel clips), along the first: ``tvl1``, the flow the
 main path computes for ``chip_smoke.py``'s 1080p scene
 (``FlowConfig().flow_cold_carry`` of its first two noisy frames; its
 540x960 carry for the gate); ``smooth``, a sinusoid of about a pixel;
@@ -33,7 +37,11 @@ time of everything the call launches, per call; each with the L2 cache
 hot (calls back to back) and flushed (a 96 MB buffer written before
 each call; ``*_flushed``). ``kernels`` lists what one call launched.
 ``bound_ms`` is the byte bound of the call (each input read once, each
-output written once, over 3.35 TB/s).
+output written once, over 3.35 TB/s). ``digest`` is a sha256 of the
+call's output and mask bytes. The ``--against`` checkout's K4 may
+refuse a channel count (a parent that took at most 9): its turns record
+the refusal in place of the case. A refusal in this checkout's turns
+fails the run.
 
 Beside each warp along the ``tvl1`` flow, ``grid_sample/<case>`` times
 ``torch.nn.functional.grid_sample(mode="bicubic", padding_mode="zeros",
@@ -47,7 +55,9 @@ debug mode at "error", so a host sync in it raises.
 With ``--against DIR`` (another checkout, for example the parent commit
 unpacked with ``git archive``) the turns run other, this, this, other,
 so both are timed on the same card. Every turn prints one JSON line with
-the card's name and power limit; the last line is the mean per tree.
+the card's name and power limit; the last line is the mean per tree and
+``digests_equal``, whether every turn that ran a case gave the same bits
+in it (a kernel change that keeps the parent's arithmetic).
 
     python3 bwd_nlkalman_tpu_torch/tools/warp_bench.py --variants
 
@@ -79,6 +89,8 @@ FLUSH_BYTES = 96 << 20
 HBM_BYTES_S = 3.35e12
 WARPS = (("filter_c2_1080p", FULL, 2, False), ("smoother_c1_occl_1080p", FULL, 1, True),
          ("gate_c1_540x960", HALF, 1, False), ("tvl1_c3_1080x1920", FULL, 3, False))
+CHANNELS = (4, 5, 6, 7, 8, 9, 10, 12, 14)   # c<C>_occl_1080p, along the tvl1 flow
+CHANNEL_CASES = {f"c{c}_occl_1080p/tvl1" for c in CHANNELS}
 
 
 def smooth_flow(h, w):
@@ -139,6 +151,10 @@ def inputs():
             if occl else None
         for kind, fl in flows.items():
             warps[f"{name}/{kind}"] = (im, fl[size], oc)
+    oc = t(np.where(rng.uniform(size=FULL) < 0.1, 255.0, 0.0).astype(np.float32))
+    for c in CHANNELS:
+        im = t(rng.uniform(0, 255, FULL + (c,)).astype(np.float32))
+        warps[f"c{c}_occl_1080p/tvl1"] = (im, u, oc)   # CHANNEL_CASES
     nz = t(noisy_frames(*FULL, 2))
     i0, i1 = nz[1], nz[0]
     i1s = torch.stack([i1, *centered_gradient(i1)], dim=-1)
@@ -195,13 +211,21 @@ def per_call(fn, reps, flush=None, own=None):
     return ms, mine, total, names
 
 
-def timed(fn, nbytes, flush):
+def timed(fn, nbytes, flush, may_refuse=False):
+    from bwd_nlkalman_tpu_torch.tools.tvl1_bench import digest
+
+    try:
+        dig = digest(fn())
+    except ValueError as e:    # the other checkout's K4 refuses the case
+        if not may_refuse:
+            raise
+        return {"refused": str(e)}
     hot = per_call(fn, REPS, None, "warp_")
     cold = per_call(fn, REPS, flush, "warp_")
     return {"ms": hot[0], "warp_device_ms": hot[1], "device_ms": hot[2],
             "ms_flushed": cold[0], "warp_device_ms_flushed": cold[1],
             "device_ms_flushed": cold[2], "kernels": hot[3],
-            "bound_ms": 1e3 * nbytes / HBM_BYTES_S}
+            "bound_ms": 1e3 * nbytes / HBM_BYTES_S, "digest": dig}
 
 
 def worker(root: str) -> dict:
@@ -230,9 +254,10 @@ def worker(root: str) -> dict:
     for name, (im, flow, oc) in warps.items():
         h, w, c = im.shape
         nbytes = h * w * (8 * c + 8 + 1 + (4 if oc is not None else 0))
-        res[name] = timed(lambda: bicubic_warp_cuda(im, flow, oc), nbytes, flush)
+        res[name] = timed(lambda: bicubic_warp_cuda(im, flow, oc), nbytes, flush,
+                          may_refuse=root != ROOT)
     for name, (im, flow, _) in warps.items():
-        if not name.endswith("/tvl1"):
+        if not name.endswith("/tvl1") or name in CHANNEL_CASES:
             continue
         h, w, c = im.shape
         planar = im.permute(2, 0, 1)[None].contiguous()
@@ -297,7 +322,7 @@ def variants() -> int:
          os.path.join(HERE, "warp_variants.cu"), "-o", str(lib_path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     _build.library()
-    warps, _ = inputs()
+    warps = {k: v for k, v in inputs()[0].items() if k not in CHANNEL_CASES}
     want = {name: bicubic_warp_plain(*args) for name, args in warps.items()}
     log = nvcc.communicate()[0]
     if nvcc.returncode != 0:
@@ -365,16 +390,21 @@ def main(argv=None) -> int:
         print(line, flush=True)
         runs.append(json.loads(line))
     mean: dict = {}
+    digests: dict = {}
     for run in runs:
         m = mean.setdefault(run["root"], {})
         for name, c in run["cases"].items():
+            if "digest" in c:
+                digests.setdefault(name, set()).add(c["digest"])
             for key in ("ms", "warp_device_ms", "device_ms", "ms_flushed",
                         "warp_device_ms_flushed", "device_ms_flushed"):
-                if c[key] is not None:
+                if c.get(key) is not None:
                     m.setdefault(name, {}).setdefault(key, []).append(c[key])
     print(json.dumps({"card": runs[0]["card"], "mean": {
         root: {name: {k: sum(v) / len(v) for k, v in keys.items()}
-               for name, keys in m.items()} for root, m in mean.items()}}))
+               for name, keys in m.items()} for root, m in mean.items()},
+        "digests": {k: sorted(v) for k, v in digests.items()},
+        "digests_equal": all(len(v) == 1 for v in digests.values())}))
     return 0
 
 

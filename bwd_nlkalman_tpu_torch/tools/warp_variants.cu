@@ -53,7 +53,7 @@ __global__ void __launch_bounds__(32 * TY, B)
                   uint8_t* __restrict__ valid, int h, int w) {
   const int x = blockIdx.x * 32 + threadIdx.x;
   const int y0 = blockIdx.y * TY * PY + threadIdx.y;
-  const auto taps = k4_global_taps<C, C>(im, w, C);
+  const auto taps = k4_global_taps<C, C>(im, w, C, C);
 #pragma unroll
   for (int q = 0; q < PY; ++q) {
     const int y = y0 + q * TY;
@@ -139,7 +139,7 @@ __global__ void __launch_bounds__(32 * TY, B)
       for (int ch = 0; ch < C; ++ch) t[ch] = base[ch * plane + k * stride + i];
     };
   };
-  const auto from_global = k4_global_taps<C, C>(im, w, C);
+  const auto from_global = k4_global_taps<C, C>(im, w, C, C);
 #pragma unroll
   for (int q = 0; q < PY; ++q) {
     const int y = y0 + q * TY;

@@ -1,7 +1,7 @@
 """Utility subsystems of the port: pixel-expression evaluation (plambda)
-and image statistics (imprintf), numpy only. The JAX package's profiling
-helpers are not ported: ``chip_smoke.py`` and ``tools/*_bench.py`` time
-the card."""
+and image statistics (imprintf), numpy only, and profiling/tracing
+(a per-stage timer that waits for the card, a torch.profiler trace)."""
 
 from .imprintf import imprintf  # noqa: F401
 from .plambda import plambda  # noqa: F401
+from .profiling import StageTimer, trace  # noqa: F401

@@ -26,9 +26,12 @@ arguments, one GPU). Phases, each reported on its own line:
    flow hundreds of pixels wide, timed along the flow the main path
    computes for the slices' scene with a smooth and a noisy flow beside
    it, its TV-L1 entry at 1080x1920 and, on a line of its own,
-   ``grid_sample``'s bicubic as a yardstick; K4 at 9 channels (fsmo's warp
-   of an RGB clip) at those sizes and at 1080p along the main path's flow,
-   timed; K1 at sigma 10 and 40, gray and RGB, at 270x480; K1 widened: at
+   ``grid_sample``'s bicubic as a yardstick; K4 at 4-21 channels (the
+   generic instance, 9 for fsmo's warp of an RGB clip, and past 9 in
+   channel groups: 10-14 the filter's and fsmo's warps of 4-7-channel
+   clips) at those sizes, and at 9, 10, 12 and 14 at 1080p along the main
+   path's flow, each timed against its bound; K1 at sigma 10 and 40,
+   gray and RGB, at 270x480; K1 widened: at
    psz 2, 4, 6, 10, 12 and 16 with 1, 3, 4 and 7 channels at 48x64 (the
    four kinds of pass in turn), at psz 4 and 12 gray and psz 8 with 4
    channels at 270x480, each with float32 and with bf16 bands against the
@@ -123,7 +126,8 @@ arguments, one GPU). Phases, each reported on its own line:
    against whole; slice 1's warm step with bf16 duals at sp 2, the same
    bits as the whole-frame bf16 step; the shard forms against their plain
    versions on every shard of sp 2-4 (K2's round in float32 and with bf16
-   duals, K3's, K4's TV-L1 entry and shard warp);
+   duals, K3's, K4's TV-L1 entry and shard warp, the warp at C=2 and
+   C=12);
    ``denoise_sequence_sharded`` on slice 1's clip and flow at sp 2 and 3,
    the flow sharded too: frames/s, flt2 and smo1 within
    0.05 dB of slice 1, K1 = 11 sp, K2 = the levels run whole + sp x the
@@ -141,11 +145,31 @@ arguments, one GPU). Phases, each reported on its own line:
    against its own decode), ms per frame native and pure; ``FrameLoader``
    over 8 frames of 1080p (PNG where built, else PFM), frames/s against a
    loop of ``read_image``; ``nlkalman-seq`` on JPEG frames where libjpeg
-   is built in.
+   is built in;
+16. clips of 4-7 channels, whose stacked priors K4 warps in channel
+   groups: ``nlkalman-seq --smoother fsmo`` (``main``, in this process)
+   on 3 frames of 1080p RGBA PNGs in ground-truth mode (K1 on every pass
+   at 4 channels, none on the plain route; one 12-channel warp a frame),
+   profiled (idle share, K1/K2/K4 device time); ``run_streaming`` with
+   fsmo on a 1080p 4-channel clip against ``fsmo_sequence`` on the same
+   frames, within 0.05 dB; ``filter_sequence`` + ``smooth_sequence`` on
+   a 1080p 5-channel clip of 3 frames (warps of 10 and 5 channels), timed
+   by ``utils.StageTimer`` (its report printed), frames/s and a profiled
+   run (idle share, K1's device time a pass, K4's), then
+   ``denoise_sequence_sharded`` on it at sp=2 against the unsharded
+   outputs within 0.05 dB; a 270x480 7-channel clip (a 14-channel warp)
+   through the kernels against the plain versions, every output within
+   0.05 dB; K1's 1080p passes at 4 and 5 channels (the first frame's
+   flt1, flt1, flt2, smo1) against the plain pass in K1's order on K1's
+   bands by phase 3's 1080p rule and against the plain pass's own by
+   phase 14's rule for that comparison, flt1 and smo1 timed
+   (event, device and plain ms, each kernel's device ms) against their
+   bounds.
 
 Every phase prints its seconds. Every launch counter is set to 0 just
 before each of the paths 4-7, 9-13, 14's sharded flows and sharded
-sequence and 15's command and read just after. The second-to-last line is a JSON object with one entry
+sequence, 15's command and 16's runs and read just after. The
+second-to-last line is a JSON object with one entry
 per kernel (K1's with a ``variants`` list: each widened case held, with
 its max abs error; K2's: each bf16-dual case, with the 540x960 level's
 times and bounds); the last line is ``{"ok": true, "device": {...}}``. Any
@@ -825,15 +849,18 @@ def phase_k4(smi):
     import torch.nn.functional as F
     from bwd_nlkalman_tpu_torch.flow import tvl1, tvl1_tiled
     from bwd_nlkalman_tpu_torch.ops.warp import bicubic_warp_plain
-    from bwd_nlkalman_tpu_torch.ops.warp_cuda import bicubic_warp_cuda, warp_tvl1_consts_cuda
+    from bwd_nlkalman_tpu_torch.ops.warp_cuda import (bicubic_warp_cuda, channel_groups,
+                                                      warp_tvl1_consts_cuda)
     from bwd_nlkalman_tpu_torch.tools.k1_bench import cuda_ms
     from bwd_nlkalman_tpu_torch.tools.warp_bench import noisy_flow, smooth_flow, tvl1_flows
 
     rng = np.random.default_rng(3)
     worst = 0.0
-    # every channel instance of the main path at the JAX suite's size, a
-    # ragged frame, and a quarter-size frame with a band of wide flow
-    for c in (1, 2, 3, 6, 9):
+    # every channel instance at the JAX suite's size, a ragged frame, and a
+    # quarter-size frame with a band of wide flow; past 9 channels, launches
+    # in channel groups: the filter's (10-14) and fsmo's (12) warps of
+    # 4-7-channel clips, and 21
+    for c in (1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 21):
         for h, w, band in ((32, 40, False), (37, 53, False), (270, 480, True)):
             im = torch.from_numpy(rng.uniform(0, 255, (h, w, c)).astype(np.float32)).cuda()
             flow = torch.from_numpy(noisy_flow(rng, h, w, band)).cuda()
@@ -850,6 +877,21 @@ def phase_k4(smi):
                 check(torch.equal(gv, wv), "K4 validity masks differ")
                 check(0 < int(gv.sum()) < h * w, "K4 case is all valid or all invalid")
                 assert_close("K4", got, want, rtol=0.0, atol=1e-3)
+            # past 9 channels, each group of the launch against the one-group
+            # launch of its channels: the same mask; the same bits where
+            # that launch is the generic instance too (4, 5, 7, 8 channels)
+            if h == 270 and c > 9:
+                for c0, n in channel_groups(c):
+                    one, ov = bicubic_warp_cuda(im[..., c0:c0 + n].contiguous(), flow, occl)
+                    part = got[..., c0:c0 + n]
+                    log(f"[3 parity] K4 {h}x{w} C={c} group {c0}..{c0 + n - 1} against the "
+                        f"one-group launch of its {n} channels: masks equal "
+                        f"{bool(torch.equal(gv, ov))}, same bits {bool(torch.equal(part, one))},"
+                        f" max abs diff {max_err(part, one):.3e}")
+                    check(torch.equal(gv, ov), "K4 group and one-group masks differ")
+                    check(n in (1, 2, 3, 6) or torch.equal(part, one),
+                          "K4 group changed the bits of the generic instance")
+                    check(max_err(part, one) <= 1e-3, "K4 group off the one-group launch")
 
     # the slice's warps at 1080p: C=2 (the filter's flt1|flt2) and C=1 with
     # an occlusion mask (the smoother's), along the flow the main path
@@ -871,29 +913,35 @@ def phase_k4(smi):
             f"identical={bool(torch.equal(gv, wv))}")
         check(torch.equal(gv, wv), "K4 1080p validity masks differ")
         assert_close("K4 1080p", got, want, rtol=0.0, atol=1e-3)
-    # fsmo's warp of an RGB clip, flt1|flt2|smo: 9 channels, with and without
-    # occlusion, along the main path's flow; timed with the occlusion mask,
-    # as fsmo warps
+    # fsmo's warp of an RGB clip, flt1|flt2|smo: 9 channels; the filter's
+    # warp of a 5-channel clip (10) and of a 7-channel one (14), fsmo's of
+    # a 4-channel clip (12), in channel groups: each with and without
+    # occlusion along the main path's flow, timed with the occlusion mask,
+    # as fsmo and the filter warp
     flow = flows["the main path's TV-L1"]
-    im9 = torch.from_numpy(rng.uniform(0, 255, (h, w, 9)).astype(np.float32)).cuda()
-    for oc in (None, occl):
-        got, gv = bicubic_warp_cuda(im9, flow, oc)
-        want, wv = bicubic_warp_plain(im9, flow, oc)
-        err = max_err(got, want)
-        worst = max(worst, err)
-        log(f"[3 parity] K4 1080p C=9 occl={oc is not None} along the main path's TV-L1 "
-            f"flow: max abs err {err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} "
-            f"identical={bool(torch.equal(gv, wv))}")
-        check(torch.equal(gv, wv), "K4 1080p C=9 validity masks differ")
-        assert_close("K4 1080p C=9", got, want, rtol=0.0, atol=1e-3)
-    k9_ms, p9_ms = timed_pair(lambda: bicubic_warp_cuda(im9, flow, occl),
-                              lambda: bicubic_warp_plain(im9, flow, occl), 20, 3)
-    d9_ms = device_ms(lambda: bicubic_warp_cuda(im9, flow, occl), 20)
-    b9_ms, b9_by = bound(h * w * 9 * K4_FLOPS_CH, h * w * (4 * 9 + 8 + 4 + 4 * 9 + 1))
-    log(f"[3 time] K4 1080p C=9 with occlusion (fsmo's RGB warp) along the main path's "
-        f"TV-L1 flow: kernel {k9_ms:.4f} ms between events, device {fmt_ms(d9_ms)}, plain "
-        f"{p9_ms:.3f} ms, bound {b9_ms:.4f} ms ({b9_by}; 85 B a pixel) ({smi})")
-    del im9
+    for c in (9, 10, 12, 14):
+        imc = torch.from_numpy(rng.uniform(0, 255, (h, w, c)).astype(np.float32)).cuda()
+        for oc in (None, occl):
+            got, gv = bicubic_warp_cuda(imc, flow, oc)
+            want, wv = bicubic_warp_plain(imc, flow, oc)
+            err = max_err(got, want)
+            worst = max(worst, err)
+            log(f"[3 parity] K4 1080p C={c} occl={oc is not None} along the main path's TV-L1 "
+                f"flow: max abs err {err:.3e} (atol 1e-3), valid {int(gv.sum())}/{h * w} "
+                f"identical={bool(torch.equal(gv, wv))}")
+            check(torch.equal(gv, wv), f"K4 1080p C={c} validity masks differ")
+            assert_close(f"K4 1080p C={c}", got, want, rtol=0.0, atol=1e-3)
+        del got, want
+        kc_ms, pc_ms = timed_pair(lambda: bicubic_warp_cuda(imc, flow, occl),
+                                  lambda: bicubic_warp_plain(imc, flow, occl), 20, 3)
+        dc_ms = device_ms(lambda: bicubic_warp_cuda(imc, flow, occl), 20)
+        px = 4 * c + 8 + 4 + 4 * c + 1
+        bc_ms, bc_by = bound(h * w * c * K4_FLOPS_CH, h * w * px)
+        log(f"[3 time] K4 1080p C={c} with occlusion ({len(channel_groups(c))} channel "
+            f"group(s)) along the main path's TV-L1 flow: kernel {kc_ms:.4f} ms between "
+            f"events, device {fmt_ms(dc_ms)}, plain {pc_ms:.3f} ms, bound {bc_ms:.4f} ms "
+            f"({bc_by}; {px} B a pixel) ({smi})")
+        del imc
     # the timed call: the filter's warp along the main path's flow
     k_ms, p_ms = timed_pair(lambda: bicubic_warp_cuda(im, flow),
                             lambda: bicubic_warp_plain(im, flow), 20, 5)
@@ -925,7 +973,7 @@ def phase_k4(smi):
         f"True), another function that the port never calls, on the same 1080p C=2 "
         f"input in its planar layout: {g_ms:.4f} ms between events, device "
         f"{fmt_ms(device_ms(yardstick, 20))} ({smi})")
-    del im, planar, grid, got, want, flows, flow
+    del im, planar, grid, flows, flow
 
     # the TV-L1 entry at the slice's 1080x1920 level: (I1, I1x, I1y) of a
     # full-resolution pair warped along a smooth flow that leaves the frame
@@ -1092,7 +1140,9 @@ def profile_slice(run, tag, smi):
     """One more run under torch.profiler: device busy time (the union of
     the device activities), the idle share of the run's host wall time, the
     five kernels that take the most device time, and the device time and
-    kernel count of each of K1-K4 (``KERNEL_NAMES``)."""
+    kernel count of each of K1-K4 (``KERNEL_NAMES``). Returns (idle share,
+    kernel id -> device ms), or None where the profiler saw no device
+    time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -1117,9 +1167,11 @@ def profile_slice(run, tag, smi):
         ", ".join(f"{k} {v:.1f} ms ({100 * v / busy:.1f}%)" for k, v in top) + f" ({smi})")
     ids = {k: [short_name(n).startswith(KERNEL_NAMES[k]) for n, _, _ in ev]
            for k in KERNEL_NAMES}
+    by = {k: sum(t1 - t0 for (_, t0, t1), m in zip(ev, mine) if m) / 1e3
+          for k, mine in ids.items()}
     log(f"[{tag}] device time by kernel: " + ", ".join(
-        f"{k} {sum(t1 - t0 for (_, t0, t1), m in zip(ev, mine) if m) / 1e3:.3f} ms in "
-        f"{sum(mine)} kernels" for k, mine in ids.items()) + f" ({smi})")
+        f"{k} {by[k]:.3f} ms in {sum(mine)} kernels" for k, mine in ids.items()) + f" ({smi})")
+    return 1 - busy / wall, by
 
 
 def phase_slice_fullres(smi):
@@ -2254,18 +2306,25 @@ def shard_kernels(nz, fb, prevs, flows, smi):
                 k_ms, p_ms, *bound(npx * (3 * K4_FLOPS_CH + 8), npx * (8 + 4 + 16) + h * w * 12))
     h, w = FULL
     occ = occlusion_mask(cold, 0.75)
-    worst = 0.0
-    for sp in (2, 3, 4):
-        for r0, r1 in row_bounds(h, sp):
-            args = (prevs, cold[r0:r1].contiguous(), occ[r0:r1].contiguous())
-            out, valid = bicubic_warp(*args, y0=r0)
-            ref, ref_valid = bicubic_warp_plain(*args, y0=r0)
-            worst = max(worst, max_err(out, ref))
-            check(torch.equal(valid, ref_valid), f"K4 shard warp sp={sp} rows {r0}: masks")
-            assert_close(f"K4 shard warp sp={sp} rows {r0}..{r1}", out, ref, rtol=0.0,
-                         atol=1e-3)
-    log(f"[14 shard kernels] K4 shard warp C=2 along the cold flow, every shard of sp 2-4: "
-        f"max abs {worst:.3e} (atol 1e-3), masks equal")
+    # C=2, the filter's gray priors, and C=12, fsmo's priors of a
+    # 4-channel clip (two channel groups)
+    im12 = torch.from_numpy(np.random.default_rng(14).uniform(0, 255, (h, w, 12))
+                            .astype(np.float32)).cuda()
+    for src in (prevs, im12):
+        worst = 0.0
+        for sp in (2, 3, 4):
+            for r0, r1 in row_bounds(h, sp):
+                args = (src, cold[r0:r1].contiguous(), occ[r0:r1].contiguous())
+                out, valid = bicubic_warp(*args, y0=r0)
+                ref, ref_valid = bicubic_warp_plain(*args, y0=r0)
+                worst = max(worst, max_err(out, ref))
+                check(torch.equal(valid, ref_valid),
+                      f"K4 shard warp C={src.shape[-1]} sp={sp} rows {r0}: masks")
+                assert_close(f"K4 shard warp C={src.shape[-1]} sp={sp} rows {r0}..{r1}", out,
+                             ref, rtol=0.0, atol=1e-3)
+        log(f"[14 shard kernels] K4 shard warp C={src.shape[-1]} along the cold flow, every "
+            f"shard of sp 2-4: max abs {worst:.3e} (atol 1e-3), masks equal")
+    del im12
     args = (prevs, cold[:h // 2].contiguous(), occ[:h // 2].contiguous())
     k_ms, p_ms = timed_pair(lambda: bicubic_warp(*args, y0=0),
                             lambda: bicubic_warp_plain(*args, y0=0), 50, 2)
@@ -2379,6 +2438,245 @@ def phase_native_io(smi):
         torch.cuda.synchronize()
 
 
+def phase_channels(smi):
+    """16. Clips of 4-7 channels, whose stacked priors K4 warps in channel
+    groups: ``nlkalman-seq --smoother fsmo`` through ``main`` on 1080p RGBA
+    PNGs (profiled), ``run_streaming`` with fsmo on a 1080p 4-channel clip
+    against ``fsmo_sequence``, ``filter_sequence`` + ``smooth_sequence`` on
+    a 1080p 5-channel clip (timed by ``utils.StageTimer``, profiled),
+    ``denoise_sequence_sharded`` on it at sp=2 against the unsharded run, a
+    270x480 7-channel clip through the kernels against the plain versions,
+    and K1's 1080p passes at 4 and 5 channels held against the plain pass
+    and timed."""
+    import re
+    import tempfile
+
+    import torch
+    from bwd_nlkalman_tpu_torch.cli import nlkalman_seq
+    from bwd_nlkalman_tpu_torch.core.engine import dense_pass_v2, nlk_bases
+    from bwd_nlkalman_tpu_torch.core.engine_cuda import dense_pass_cuda
+    from bwd_nlkalman_tpu_torch.core.nlkalman import PLAIN_PASSES
+    from bwd_nlkalman_tpu_torch.io import read_image, write_png
+    from bwd_nlkalman_tpu_torch.ops.bases import make_bases
+    from bwd_nlkalman_tpu_torch.parallel import denoise_sequence_sharded, make_mesh
+    from bwd_nlkalman_tpu_torch.pipeline import (filter_sequence, fsmo_sequence, run_streaming,
+                                                 smooth_sequence)
+    from bwd_nlkalman_tpu_torch.tools.k1_bench import (k1_bands, k1_order, nlk_inputs, pass_args,
+                                                       stage_ms)
+    from bwd_nlkalman_tpu_torch.utils import StageTimer
+
+    t, (h, w) = 3, FULL
+    # fsmo on RGBA PNGs: K1 at 4 channels on every pass (2 on the first
+    # frame, 3 on each after), one 12-channel warp (flt1|flt2|smo) a frame
+    clean, _ = make_clip(h, w, t, SIGMA, channels=4)
+    with tempfile.TemporaryDirectory() as d:
+        pat, out = os.path.join(d, "c-%03d.png"), os.path.join(d, "out")
+        for i in range(t):
+            write_png(pat % (i + 1), clean[i])
+
+        def cli():
+            return nlkalman_seq.main([pat, "1", str(t), f"{SIGMA:g}", out, "--gt-pattern",
+                                      pat, "--smoother", "fsmo"])
+
+        counters = reset_counters()
+        PLAIN_PASSES.reset()
+        t0 = time.perf_counter()
+        rc = cli()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = read_counters(counters, "16 nlkalman-seq fsmo RGBA", ("K1", "K2", "K4",
+                                                                          "K4grp"))
+        text = open(os.path.join(out, "measures")).read()
+        shape = read_image(os.path.join(out, f"smo1-{t:03d}.tif")).shape
+        total = {m[0]: float(m[1]) for m in
+                 re.findall(r"^(\w+)-total RMSE \S+ PSNR (\S+)$", text, re.M)}
+        log(f"[16 nlkalman-seq fsmo RGBA] 1080p RGBA PNGs T={t}, ground-truth mode: rc {rc}, "
+            f"smo1 frames {shape}, PSNR " + " ".join(f"{k} {v:.3f}" for k, v in total.items())
+            + f" dB; plain-route passes {PLAIN_PASSES.count}; {secs:.3f} s with io, "
+            f"{t / secs:.3f} frames/s ({smi})")
+        check(rc == 0 and shape == (h, w, 4), "nlkalman-seq on RGBA PNGs failed")
+        check(set(total) == {"flt1", "flt2", "smo1"}, f"measures hold {sorted(total)}")
+        check(total["smo1"] >= total["flt2"] - 0.3,
+              "fsmo RGBA smo1 is worse than flt2 by 0.3 dB")
+        check(PLAIN_PASSES.count == 0 and launches["K1"] == 3 * t - 1,
+              f"fsmo RGBA: K1 {launches['K1']} passes, {PLAIN_PASSES.count} on the plain route")
+        check(launches["K4grp"] == t - 1, f"fsmo RGBA: {launches['K4grp']} grouped warps")
+        prof = profile_slice(cli, "16 nlkalman-seq fsmo RGBA profile", smi)
+        if prof is not None:
+            log(f"[16 nlkalman-seq fsmo RGBA profile] idle {100 * prof[0]:.1f}% of the command's "
+                f"wall time (png and tif io, noise, measures and the passes); device K1 "
+                f"{prof[1]['K1']:.3f} ms, K2 {prof[1]['K2']:.3f} ms, K4 {prof[1]['K4']:.3f} ms "
+                f"({smi})")
+
+    # the stream with fsmo on a 4-channel clip: the same 12-channel warp a
+    # frame, against fsmo_sequence on the same frames
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA, seed=4, channels=4)
+    frames = {}
+    counters = reset_counters()
+    PLAIN_PASSES.reset()
+    t0 = time.perf_counter()
+    run_streaming(lambda i: noisy_np[i], 0, t - 1, SIGMA, smoother="fsmo",
+                  write_frame=lambda name, i, a: frames.__setitem__((name, i), a))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters(counters, "16 stream fsmo 4 channels", ("K1", "K2", "K4", "K4grp"))
+    check(PLAIN_PASSES.count == 0 and launches["K1"] == 3 * t - 1,
+          f"stream 4 channels: K1 {launches['K1']} passes, {PLAIN_PASSES.count} plain")
+    check(launches["K4grp"] == t - 1, f"stream 4 channels: {launches['K4grp']} grouped warps")
+    seq = fsmo_sequence(torch.from_numpy(noisy_np).cuda(), SIGMA)
+    clean = torch.from_numpy(clean_np).cuda()
+    diffs = []
+    for name, want in zip(("flt1", "flt2", "smo1"), seq):
+        got = torch.from_numpy(np.stack([frames[(name, i)] for i in range(t)])).cuda()
+        check(got.shape == want.shape and bool(torch.isfinite(got).all()),
+              f"stream 4-channel {name} is not finite or has the wrong shape")
+        diffs.append((name, psnr(clean, got), psnr(clean, want), max_err(got, want)))
+    log(f"[16 stream fsmo 4 channels] 1080p T={t}: " + "; ".join(
+        f"{n} PSNR {a:.4f} dB (fsmo_sequence {b:.4f}), max abs diff {e:.3e}"
+        for n, a, b, e in diffs) + f"; {secs:.3f} s with host copies, {t / secs:.3f} "
+        f"frames/s ({smi})")
+    check(all(abs(a - b) <= 0.05 for _, a, b, _ in diffs),
+          "the 4-channel stream is off fsmo_sequence by more than 0.05 dB")
+    del seq, clean
+
+    # filter + smooth on a 5-channel clip: the filter's warp of flt1|flt2 is
+    # 10 channels (two groups), the smoother's 5
+    clean_np, noisy_np = make_clip(h, w, t, SIGMA, channels=5)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+
+    def run(timer):
+        flt1, flt2 = timer.measure("filter_sequence 5 channels", filter_sequence, noisy,
+                                   SIGMA)
+        return flt1, flt2, timer.measure("smooth_sequence 5 channels", smooth_sequence,
+                                         flt2, SIGMA)
+
+    run(StageTimer())            # warm-up
+    timer = StageTimer()
+    counters = reset_counters()
+    PLAIN_PASSES.reset()
+    t0 = time.perf_counter()
+    outs = run(timer)
+    secs = time.perf_counter() - t0
+    launches = read_counters(counters, "16 sequence 5 channels", ("K1", "K2", "K4", "K4grp"))
+    for name, x in zip(("flt1", "flt2", "smo1"), outs):
+        check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
+              f"5-channel {name} is not finite or has the wrong shape")
+    p_n, p_1, p_2, p_s = (psnr(clean, x) for x in (noisy, *outs))
+    log(f"[16 sequence 5 channels] 1080p T={t} sigma={SIGMA:g}: PSNR noisy {p_n:.3f} flt1 "
+        f"{p_1:.3f} flt2 {p_2:.3f} smo1 {p_s:.3f} dB; plain-route passes "
+        f"{PLAIN_PASSES.count}; {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
+    for line in timer.report().splitlines():
+        log(f"[16 stage timer] {line}")
+    check(p_s >= p_n + 6.0, "5-channel smo1 does not denoise by 6 dB")
+    check(PLAIN_PASSES.count == 0 and launches["K1"] == 3 * t - 1,
+          f"5 channels: K1 {launches['K1']} passes, {PLAIN_PASSES.count} on the plain route")
+    check(launches["K4grp"] == t - 1, f"5 channels: {launches['K4grp']} grouped warps")
+    prof = profile_slice(lambda: run(StageTimer()), "16 sequence 5 channels profile", smi)
+    if prof is not None:
+        log(f"[16 sequence 5 channels profile] idle {100 * prof[0]:.1f}%; K1 "
+            f"{prof[1]['K1'] / launches['K1']:.3f} ms of device time a pass, K4 "
+            f"{prof[1]['K4']:.3f} ms in all ({smi})")
+
+    # the same clip row-sharded at sp=2 on this card: each shard's filter
+    # warp 10 channels in groups, against the unsharded outputs
+    mesh = make_mesh(1, 2, ["cuda:0"] * 2)
+    counters = reset_counters()
+    PLAIN_PASSES.reset()
+    t0 = time.perf_counter()
+    sharded = denoise_sequence_sharded(noisy, SIGMA, mesh)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = read_counters(counters, "16 sharded sequence 5 channels",
+                             ("K1", "K2", "K4", "K4grp"))
+    d = []
+    for name, x, want in zip(("flt1", "flt2", "smo1"), sharded, outs):
+        check(x.shape == noisy.shape and bool(torch.isfinite(x).all()),
+              f"sharded 5-channel {name} is not finite or has the wrong shape")
+        d.append(psnr(clean, x) - psnr(clean, want))
+    log(f"[16 sharded sequence 5 channels] 1080p T={t} sp=2 on cuda:0 x 2: PSNR d flt1/flt2/"
+        "smo1 against the unsharded run " + "/".join(f"{x:+.4f}" for x in d) + " dB (|d| <= "
+        f"0.05); {secs:.3f} s, {t / secs:.3f} frames/s ({smi})")
+    check(max(abs(x) for x in d) <= 0.05, "sharded 5-channel sequence off the unsharded one")
+    check(PLAIN_PASSES.count == 0 and launches["K1"] == 2 * (3 * t - 1),
+          f"sharded 5 channels: K1 {launches['K1']}, {PLAIN_PASSES.count} plain passes")
+    check(launches["K4grp"] == 2 * (t - 1),
+          f"sharded 5 channels: {launches['K4grp']} grouped warps, 2 a frame expected")
+    del clean, noisy, outs, sharded
+
+    # 7 channels at 270x480: the filter's warp is 14 channels, against the
+    # plain versions on every output
+    clean_np, noisy_np = make_clip(*MID, t, SIGMA, seed=7, channels=7)
+    clean = torch.from_numpy(clean_np).cuda()
+    noisy = torch.from_numpy(noisy_np).cuda()
+    res = {}
+    for engine in ("auto", "plain"):
+        counters = reset_counters()
+        flt1, flt2 = filter_sequence(noisy, SIGMA, engine=engine)
+        smo1 = smooth_sequence(flt2, SIGMA, engine=engine)
+        res[engine] = [psnr(clean, x) for x in (flt1, flt2, smo1)]
+        launches = read_counters(counters, f"16 sequence 7 channels {engine}",
+                                 ("K1", "K4", "K4grp") if engine == "auto" else ())
+    d = [abs(a - b) for a, b in zip(res["auto"], res["plain"])]
+    log(f"[16 sequence 7 channels vs plain] 270x480 T={t}: kernels flt1/flt2/smo1 "
+        + "/".join(f"{x:.4f}" for x in res["auto"]) + " dB, plain "
+        + "/".join(f"{x:.4f}" for x in res["plain"]) + " dB, |d| "
+        + "/".join(f"{x:.4f}" for x in d) + " (<= 0.05)")
+    check(max(d) <= 0.05, "7 channels: kernels and plain versions disagree")
+    del clean, noisy, flt1, flt2, smo1
+    torch.cuda.empty_cache()
+
+    # K1's 1080p passes at 4 and 5 channels against the plain pass. By
+    # phase 3's 1080p rule (share beyond the bar, mean abs error) against
+    # the plain pass on K1's bands summing its distances in K1's order
+    # (k1_bands, k1_order), so that a selection tie on a float's last bit
+    # goes the same way; against the plain pass with its own bands and
+    # order by phase 14's rule for that comparison (K1_SHARD_SHARE,
+    # K1_SHARD_MEAN): over 256-320 coefficients a distance's rounding
+    # moves more ties than in gray. flt1 and smo1 timed
+    kb = make_bases(nlk_bases(8), "cuda")
+    rng = np.random.default_rng(16)
+    for c in (4, 5):
+        cur, prev, valid, basic = (torch.from_numpy(np.ascontiguousarray(a)).cuda()
+                                   for a in nlk_inputs(rng, *FULL, c))
+        for name, args in pass_args(cur, prev, valid, basic, kb).items():
+            got = dense_pass_cuda(*args)
+            with k1_order(), k1_bands():
+                same = dense_pass_v2(*args)
+            own = dense_pass_v2(*args)
+            res = []
+            for want in (same, own):
+                diff = (got - want).abs()
+                res.append((float(((diff > 5e-2 + 1e-3 * want.abs()).sum())) / want.numel(),
+                            float(diff.mean()), float(diff.max())))
+            (share, mean, mx), (o_share, o_mean, o_mx) = res
+            log(f"[16 parity] K1 {name} 1080p {c} channels: against the plain pass in K1's "
+                f"order on its bands max abs err {mx:.3e}, mean {mean:.3e} (<= "
+                f"{K1_FULL_MEAN:g}), share beyond rtol 1e-3 / atol 5e-2 {share:.2e} (<= "
+                f"{K1_FULL_SHARE:g}); against the plain pass's own bands and order max "
+                f"{o_mx:.3e}, mean {o_mean:.3e} (<= {K1_SHARD_MEAN:g}), share {o_share:.2e} "
+                f"(<= {K1_SHARD_SHARE:g})")
+            check(share <= K1_FULL_SHARE and mean <= K1_FULL_MEAN,
+                  f"K1 {name} 1080p {c} channels off the plain pass in its order")
+            check(o_share <= K1_SHARD_SHARE and o_mean <= K1_SHARD_MEAN,
+                  f"K1 {name} 1080p {c} channels off the plain pass")
+            del got, same, own
+            if name not in ("flt1", "smo1"):
+                continue
+            k_ms, p_ms = timed_pair(lambda: dense_pass_cuda(*args),
+                                    lambda: dense_pass_v2(*args), 3, 1)
+            d_ms = device_ms(lambda: dense_pass_cuda(*args), 3)
+            st = stage_ms(lambda: dense_pass_cuda(*args), 3)
+            b_ms, b_by = bound(*k1_work(cur, valid, args[5], *args[6:9])[:2])
+            log(f"[16 time] K1 {name} 1080p {c} channels: kernel {k_ms:.2f} ms between "
+                f"events, device {fmt_ms(d_ms)}, plain {p_ms:.2f} ms, bound {b_ms:.3f} ms "
+                f"({b_by}); device ms by kernel: " + (
+                    ", ".join(f"{k} {v:.3f}" for k, v in st.items()) if st
+                    else "not measured") + f" ({smi})")
+        del cur, prev, valid, basic, args
+        torch.cuda.empty_cache()
+
+
 # the kernels of each, by the start of their names as torch.profiler shows them
 KERNEL_NAMES = {"K1": ("dct_kernel", "site_kernel", "aggregate_kernel", "fold_kernel"),
                 "K2": ("level_kernel", "round_kernel<K2Rule"),
@@ -2433,6 +2731,7 @@ def main() -> int:
     timed("13 search", phase_search, smi)
     timed("14 sharded", phase_sharded, smi, slice1)
     timed("15 native io", phase_native_io, smi)
+    timed("16 channels", phase_channels, smi)
     torch.cuda.synchronize()
     # no single PyTorch call computes any of these functions, so there is
     # no library time (grid_sample's bicubic is another cubic and border)

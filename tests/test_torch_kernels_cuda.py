@@ -50,12 +50,13 @@ def _t(a, dev):
 @pytest.mark.parametrize("band", [False, True])
 @pytest.mark.parametrize("occl", [False, True])
 @pytest.mark.parametrize("h,w", [(1, 1), (3, 3), (17, 16), (32, 40), (37, 53), (270, 480)])
-@pytest.mark.parametrize("c", [1, 2, 3, 5, 6, 8, 9])
+@pytest.mark.parametrize("c", [1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 21])
 def test_warp_kernel_matches_plain(dev, c, h, w, occl, band):
     """K4 against its plain version: every channel instance (1, 2, 3, 6,
-    9, the most it takes, and the generic one at 5 and 8), frames with no
-    valid pixel, ragged tiles, occlusion, and a band shifted by hundreds
-    of pixels."""
+    9, and the generic one at 4, 5, 7 and 8), launches in channel groups
+    (10, 12 and 14, the filter's and fsmo's warps of 4-7-channel clips, and
+    21, odd), frames with no valid pixel, ragged tiles, occlusion, and a
+    band shifted by hundreds of pixels."""
     rng = np.random.default_rng(c)
     im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
     flow = _t(noisy_flow(rng, h, w, band), dev)
@@ -65,6 +66,52 @@ def test_warp_kernel_matches_plain(dev, c, h, w, occl, band):
     ref, ref_valid = bicubic_warp_plain(im, flow, oc)
     assert valid.dtype == torch.bool and torch.equal(valid, ref_valid)
     torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("c", range(1, 25))
+def test_warp_kernel_takes_any_channel_count_in_one_launch(dev, c):
+    """1..24 channels, each one launch of its channel-group plan, against
+    the plain version (test_warp_kernel_matches_plain's bar)."""
+    rng = np.random.default_rng(c + 40)
+    h, w = 37, 53
+    im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
+    flow = _t(noisy_flow(rng, h, w, False), dev)
+    oc = _t(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0).astype(np.float32), dev)
+    warp_cuda.LAUNCHES.reset()
+    warp_cuda.LAUNCHES_GROUPED.reset()
+    out, valid = bicubic_warp_cuda(im, flow, oc)
+    assert warp_cuda.LAUNCHES.count == 1
+    assert warp_cuda.LAUNCHES_GROUPED.count == int(len(warp_cuda.channel_groups(c)) > 1)
+    ref, ref_valid = bicubic_warp_plain(im, flow, oc)
+    assert torch.equal(valid, ref_valid)
+    torch.testing.assert_close(out, ref, rtol=0.0, atol=1e-3)
+
+
+@pytest.mark.parametrize("c", [10, 11, 12, 13, 14, 15, 16, 17, 21, 24])
+def test_warp_kernel_groups_keep_the_one_group_bits(dev, c):
+    """Each channel group of a launch of more than 9 channels gives the
+    output and mask of the one-group launch of its channels (8, or the
+    rest: 1-8 over these counts).
+
+    Groups run the generic instance. So a group of 4, 5, 7 or 8 channels
+    keeps the bits of that count's own launch, the generic instance too.
+    The instances of 1, 2, 3 and 6 keep the parent's code, whose compiled
+    FMA contraction differs from the generic instance's: against them a
+    group is held to test_warp_kernel_matches_plain's bar of 1e-3 (a
+    float32 ulp of the values near 255 is 1.5e-5)."""
+    rng = np.random.default_rng(c + 60)
+    h, w = 270, 480
+    im = _t(rng.uniform(0, 255, (h, w, c)).astype(np.float32), dev)
+    flow = _t(noisy_flow(rng, h, w, True), dev)
+    oc = _t(np.where(rng.uniform(size=(h, w)) < 0.1, 255.0, 0.0).astype(np.float32), dev)
+    out, valid = bicubic_warp_cuda(im, flow, oc)
+    for c0, n in warp_cuda.channel_groups(c):
+        want, want_valid = bicubic_warp_cuda(im[..., c0:c0 + n].contiguous(), flow, oc)
+        assert torch.equal(want_valid, valid), c0
+        if n in (1, 2, 3, 6):
+            torch.testing.assert_close(out[..., c0:c0 + n], want, rtol=0.0, atol=1e-3)
+        else:
+            assert torch.equal(out[..., c0:c0 + n], want), c0
 
 
 def test_warp_kernel_takes_unaligned_tensors(dev):
@@ -506,7 +553,7 @@ def test_tvl1_round_kernels_match_plain(dev, sp, k, rule):
 
 
 @pytest.mark.parametrize("nig", [False, True])
-@pytest.mark.parametrize("c", [1, 2, 3, 9])
+@pytest.mark.parametrize("c", [1, 2, 3, 9, 12])
 @pytest.mark.parametrize("sp", [1, 2, 3])
 def test_warp_kernel_row_offset_matches_plain(dev, sp, c, nig):
     """K4's shard form: each shard's rows of the warp (from the whole

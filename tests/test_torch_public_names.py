@@ -46,9 +46,6 @@ JAX_PKG, PORT_PKG = ROOT / "bwd_nlkalman_tpu", ROOT / "bwd_nlkalman_tpu_torch"
 
 # name -> why the port has no counterpart
 NOT_PORTED = {
-    "utils.StageTimer": "utils/profiling.py times XLA stages on the TPU; the port's "
-                        "chip_smoke.py and tools/*_bench.py time the card",
-    "utils.trace": "utils/profiling.py wraps jax.profiler",
     "cli/_common.py:setup_jax": "sets up JAX's platform and compilation cache",
     "core/engine.py:auto_rows_per_block": "sizes the Pallas kernel's row blocks to "
                                           "the TPU's VMEM; K1 plans its own blocks",
@@ -59,7 +56,6 @@ NOT_PORTED = {
     "core/engine_pallas.py": "the Pallas kernel K1 (csrc/nlk_pass.cu)",
     "flow/tvl1_pallas.py": "the Pallas kernel K3 (csrc/tvl1_block.cu)",
     "ops/warp_pallas.py": "the Pallas kernel K4 (csrc/warp.cu)",
-    "utils/profiling.py": "the JAX profiling helpers, above",
 }
 
 

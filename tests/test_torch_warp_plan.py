@@ -1,7 +1,7 @@
 """K4's wrappers and its TV-L1 entry's plain version, on the CPU.
 
-- The wrappers refuse what the kernel cannot take (an empty frame, a
-  channel count outside 1..9) and CPU tensors.
+- The wrappers refuse what the kernel cannot take (an empty frame, no
+  channel, output rows outside the frame) and CPU tensors.
 - ``tvl1_stage_consts_plain`` against the JAX package's warp stage
   (``warp_bicubic_zero_multi`` and the constants of
   ``flow/tvl1_pallas.py:274-275``) on the same numpy inputs, along a
@@ -33,12 +33,13 @@ def _t(a):
     return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32))
 
 
-@pytest.mark.parametrize("kw", [dict(h=0), dict(w=0), dict(c=0), dict(c=10)])
+@pytest.mark.parametrize("kw", [dict(h=0), dict(w=0), dict(c=0), dict(y0=1)])
 def test_k4_wrapper_refuses_frames_the_kernel_cannot_take(kw):
-    args = dict(h=25, w=41, c=2) | kw
+    args = dict(h=25, w=41, c=2, y0=0) | kw
     h, w, c = args["h"], args["w"], args["c"]
-    with pytest.raises(ValueError, match="empty frame|channels"):
-        warp_cuda.bicubic_warp_cuda(torch.zeros((h, w, c)), torch.zeros((h, w, 2)))
+    with pytest.raises(ValueError, match="empty frame|channels|rows"):
+        warp_cuda.bicubic_warp_cuda(torch.zeros((h, w, c)), torch.zeros((h, w, 2)),
+                                    y0=args["y0"])
 
 
 def test_k4_wrappers_take_cuda_tensors_only():
