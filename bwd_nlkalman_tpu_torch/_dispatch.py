@@ -100,7 +100,22 @@ class LaunchCounter:
     def count(self) -> int:
         return self._host + sum(int(s) for s in self._slots.values())
 
+    def snapshot(self) -> tuple:
+        """The count as it stands, read without a host read: the host int
+        and a device-side copy of each device's int (one 4-byte copy
+        each, enqueued on the current stream). :func:`counted` resolves
+        two snapshots."""
+        return self._host, {d: s.clone() for d, s in self._slots.items()}
+
     def reset(self) -> None:
         self._host = 0
         for s in self._slots.values():
             s.zero_()
+
+
+def counted(before: tuple, after: tuple) -> int:
+    """What a :class:`LaunchCounter` counted between two of its snapshots
+    (reads the device copies: call once their stream has finished)."""
+    (h0, d0), (h1, d1) = before, after
+    return h1 - h0 + sum((int(s) - int(d0[d]) if d in d0 else int(s)) % 2 ** 32
+                         for d, s in d1.items())

@@ -11,6 +11,11 @@ Python branch (one host sync per frame). Given a ``parallel`` mesh, the
 sequence drivers run every NL-Kalman pass, and the flows, occlusion
 masks and warps (``parallel/flow.py``), row-sharded over it.
 
+While a torch profiler runs, each flow, occlusion mask, warp and
+NL-Kalman pass is a layer span, and ``NLKalmanDenoiser.forward`` the
+request's span, which takes K2's iteration counter
+(``utils.profiling.span``, ``last_request``).
+
 The causal smoothers run here too: fsmo smooths each frame against the
 previous smoothed frame inside the forward loop, reusing its flow and
 its one warp (all three priors ride it); lsmo smooths frame t-1 against
@@ -35,10 +40,12 @@ from ..core.engine import nlk_bases
 from ..core.nlkalman import note_plain_routes
 from ..flow.occlusion import occlusion_mask
 from ..flow.tvl1 import flow_bases, luma, tvl1_flow, tvl1_flow_warm
+from ..flow.tvl1_cuda import ITERATIONS
 from ..ops.bases import make_bases
 from ..ops.color import opp2rgb, rgb2opp
 from ..ops.warp import warp_bicubic_nan
 from ..params import FilterMode, NLKParams, default_params
+from ..utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,30 +81,35 @@ class FlowConfig:
                     epsilon=self.epsilon, max_iters=self.max_iters,
                     state_dtype=self.state_dtype)
 
-    # each with a ``mesh``: row-sharded over it (parallel/flow.py)
+    # each with a ``mesh``: row-sharded over it (parallel/flow.py); each a
+    # "flow" span (utils.profiling.span)
     def flow(self, i0, i1, engine="auto", bases=None, mesh=None):
-        if mesh is not None:
-            from ..parallel.flow import sharded_tvl1_flow  # parallel imports this module
-            return sharded_tvl1_flow(i0, i1, mesh, engine=engine, bases=bases, **self._kw())
-        return tvl1_flow(i0, i1, engine=engine, bases=bases, **self._kw())
+        with span("flow", i0.device):
+            if mesh is not None:
+                from ..parallel.flow import sharded_tvl1_flow  # parallel imports this module
+                return sharded_tvl1_flow(i0, i1, mesh, engine=engine, bases=bases,
+                                         **self._kw())
+            return tvl1_flow(i0, i1, engine=engine, bases=bases, **self._kw())
 
     def flow_cold_carry(self, i0, i1, engine="auto", bases=None, mesh=None):
         """Full-pyramid solve that also returns the warm-start carry."""
-        if mesh is not None:
-            from ..parallel.flow import sharded_tvl1_flow
-            return sharded_tvl1_flow(i0, i1, mesh, return_carry=True, engine=engine,
-                                     bases=bases, **self._kw())
-        return tvl1_flow(i0, i1, return_carry=True, engine=engine,
-                         bases=bases, **self._kw())
+        with span("flow", i0.device):
+            if mesh is not None:
+                from ..parallel.flow import sharded_tvl1_flow
+                return sharded_tvl1_flow(i0, i1, mesh, return_carry=True, engine=engine,
+                                         bases=bases, **self._kw())
+            return tvl1_flow(i0, i1, return_carry=True, engine=engine,
+                             bases=bases, **self._kw())
 
     def flow_warm(self, i0, i1, u_carry, engine="auto", bases=None, mesh=None):
         """Level-fscale-only solve initialised from the carried flow."""
         kw = dict(warm_nwarps=self.warm_nwarps, warm_max_iters=self.warm_max_iters,
                   engine=engine, bases=bases, **self._kw())
-        if mesh is not None:
-            from ..parallel.flow import sharded_tvl1_flow_warm
-            return sharded_tvl1_flow_warm(i0, i1, u_carry, mesh, **kw)
-        return tvl1_flow_warm(i0, i1, u_carry, **kw)
+        with span("flow", i0.device):
+            if mesh is not None:
+                from ..parallel.flow import sharded_tvl1_flow_warm
+                return sharded_tvl1_flow_warm(i0, i1, u_carry, mesh, **kw)
+            return tvl1_flow_warm(i0, i1, u_carry, **kw)
 
 
 def _occlusion(flow, occ, mesh=None):
@@ -105,37 +117,41 @@ def _occlusion(flow, occ, mesh=None):
     where it is a ready mask (a float32 tensor, nonzero = occluded, as the
     training fixtures store it), else the divergence mask of ``flow`` at
     the threshold ``occ``, row-sharded over a ``mesh``."""
-    if isinstance(occ, torch.Tensor):
-        return occ
-    if mesh is not None:
-        from ..parallel.flow import sharded_occlusion_mask  # parallel imports this module
-        return sharded_occlusion_mask(flow, mesh, occ)
-    return occlusion_mask(flow, occ)
+    with span("occlusion", flow.device):
+        if isinstance(occ, torch.Tensor):
+            return occ
+        if mesh is not None:
+            from ..parallel.flow import sharded_occlusion_mask  # parallel imports this module
+            return sharded_occlusion_mask(flow, mesh, occ)
+        return occlusion_mask(flow, occ)
 
 
 def _warp(im, flow, occl, engine="auto", mesh=None):
     """``warp_bicubic_nan`` of the (H, W, C) frame ``im``, or with a mesh its
     row-sharded form (K4's shard form on the card)."""
-    if mesh is None:
-        return warp_bicubic_nan(im, flow, occl, engine=engine)
-    from ..parallel.flow import sharded_warp  # parallel imports this module
-    return sharded_warp(im, flow, occl, mesh, engine)
+    with span("warp", im.device):
+        if mesh is None:
+            return warp_bicubic_nan(im, flow, occl, engine=engine)
+        from ..parallel.flow import sharded_warp  # parallel imports this module
+        return sharded_warp(im, flow, occl, mesh, engine)
 
 
 def _filter_pass(nisy, deno0, valid, basic, sigma, prms, mesh=None, **kw):
     """``nlkalman_filter_frame``, or with a mesh its row-sharded form."""
-    if mesh is None:
-        return nlkalman_filter_frame(nisy, deno0, valid, basic, sigma, prms, **kw)
-    from ..parallel.spatial import spatial_filter_frame  # parallel imports this module
-    return spatial_filter_frame(nisy, deno0, valid, basic, sigma, prms, mesh, **kw)
+    with span("nlk", nisy.device):
+        if mesh is None:
+            return nlkalman_filter_frame(nisy, deno0, valid, basic, sigma, prms, **kw)
+        from ..parallel.spatial import spatial_filter_frame  # parallel imports this module
+        return spatial_filter_frame(nisy, deno0, valid, basic, sigma, prms, mesh, **kw)
 
 
 def _smooth_pass(filt1, smoo0, valid, sigma, prms, mesh=None, **kw):
     """``nlkalman_smooth_frame``, or with a mesh its row-sharded form."""
-    if mesh is None:
-        return nlkalman_smooth_frame(filt1, smoo0, valid, sigma, prms, **kw)
-    from ..parallel.spatial import spatial_smooth_frame  # parallel imports this module
-    return spatial_smooth_frame(filt1, smoo0, valid, sigma, prms, mesh, **kw)
+    with span("nlk", filt1.device):
+        if mesh is None:
+            return nlkalman_smooth_frame(filt1, smoo0, valid, sigma, prms, **kw)
+        from ..parallel.spatial import spatial_smooth_frame  # parallel imports this module
+        return spatial_smooth_frame(filt1, smoo0, valid, sigma, prms, mesh, **kw)
 
 
 def _warp_passes(noisy, prevs, flow, occ, sigma, p1, p2, engine="auto",
@@ -176,8 +192,9 @@ def fsmo_step(noisy, flt1_prev, flt2_prev, smo_prev, flow, occ_th, sigma, p1,
     f11, f21, ws, v1 = _warp_passes(noisy, (flt1_prev, flt2_prev, smo_prev),
                                     flow, occ_th, sigma, p1, p2, engine, bases,
                                     window_dtype)
-    smo = nlkalman_smooth_frame(f21, ws, v1, sigma, ps, engine=engine,
-                                bases=bases, window_dtype=window_dtype)
+    with span("nlk", f21.device):
+        smo = nlkalman_smooth_frame(f21, ws, v1, sigma, ps, engine=engine,
+                                    bases=bases, window_dtype=window_dtype)
     return opp2rgb(f11), opp2rgb(f21), opp2rgb(smo)
 
 
@@ -437,6 +454,8 @@ def pipeline_bases(h: int, w: int, flow_cfgs, params) -> dict:
 
 
 SMOOTHERS = ("rts", "fsmo", "lsmo", "none")
+# what a traced request takes at its entry and exit (utils.profiling.span)
+REQUEST_COUNTERS = {"k2_iterations": ITERATIONS}
 
 
 class PipelineModule(nn.Module):
@@ -529,17 +548,18 @@ class NLKalmanDenoiser(PipelineModule):
     @torch.no_grad()
     def forward(self, noisy: torch.Tensor):
         bases = self.bases(noisy)
-        noisy = noisy.to(torch.float32).contiguous()
-        kw = dict(engine=self.engine, bases=bases, window_dtype=self.window_dtype)
-        if self.smoother == "fsmo":
-            return fsmo_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
-                                 self.flow_cfg, **kw)
-        if self.smoother == "lsmo":
-            flt1, flt2 = filter_sequence(noisy, self.sigma, self.p1, self.p2,
-                                         self.flow_cfg, **kw)
-            return flt1, flt2, lsmo_sequence(flt2, self.sigma, self.ps,
-                                             self.smooth_flow_cfg or self.flow_cfg,
-                                             **kw)
-        return denoise_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
-                                self.flow_cfg, smoothing=self.smoother == "rts",
-                                smooth_flow_cfg=self.smooth_flow_cfg, **kw)
+        with span("request", noisy.device, REQUEST_COUNTERS):
+            noisy = noisy.to(torch.float32).contiguous()
+            kw = dict(engine=self.engine, bases=bases, window_dtype=self.window_dtype)
+            if self.smoother == "fsmo":
+                return fsmo_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
+                                     self.flow_cfg, **kw)
+            if self.smoother == "lsmo":
+                flt1, flt2 = filter_sequence(noisy, self.sigma, self.p1, self.p2,
+                                             self.flow_cfg, **kw)
+                return flt1, flt2, lsmo_sequence(flt2, self.sigma, self.ps,
+                                                 self.smooth_flow_cfg or self.flow_cfg,
+                                                 **kw)
+            return denoise_sequence(noisy, self.sigma, self.p1, self.p2, self.ps,
+                                    self.flow_cfg, smoothing=self.smoother == "rts",
+                                    smooth_flow_cfg=self.smooth_flow_cfg, **kw)
