@@ -11,6 +11,11 @@ by ``_build.py``:
 - K4 the bicubic warp        (``ops/warp_cuda.py``,        ``csrc/warp.cu``)
 - P  the streaming-rate probe (``tools/vpu_probe.py``,     ``csrc/probe.cu``)
 
+and one kernel that replaces no Pallas kernel:
+
+- G  the flow's blur and zooms, a banded separable product
+                             (``ops/band_cuda.py``,        ``csrc/band_sep.cu``)
+
 Each kernel runs on CUDA tensors; on CPU tensors its plain PyTorch
 version runs instead. Entry points (``NLKalmanDenoiser``,
 ``StreamingDenoiser``, ``MultiscaleDenoiser``, ``models.get_model``, the
@@ -33,16 +38,17 @@ from .pipeline import (FlowConfig, MultiscaleDenoiser, NLKalmanDenoiser,  # noqa
 
 
 def kernel_counters():
-    """The launch counters of the ported kernels, by kernel id; "K4c9"
+    """The launch counters of the port's kernels, by kernel id; "K4c9"
     counts the K4 warps of 9 channels among K4's, "K4grp" those in more
     than one channel group (more than 9 channels)."""
     from .core.engine_cuda import LAUNCHES as k1
     from .flow.tvl1_block_cuda import LAUNCHES as k3
     from .flow.tvl1_cuda import LAUNCHES as k2
+    from .ops.band_cuda import LAUNCHES as g
     from .ops.warp_cuda import LAUNCHES as k4
     from .ops.warp_cuda import LAUNCHES_C9 as k4c9
     from .ops.warp_cuda import LAUNCHES_GROUPED as k4grp
     from .tools.vpu_probe import LAUNCHES as p
 
     return {"K1": k1, "K2": k2, "K3": k3, "K4": k4, "K4c9": k4c9, "K4grp": k4grp,
-            "P": p}
+            "P": p, "G": g}

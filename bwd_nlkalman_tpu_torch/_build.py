@@ -54,6 +54,7 @@ SIGNATURES = {
     "bnlk_nlk_aggregate": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                            _I, _I, _I, _I, _I, _I, _P],
     "bnlk_nlk_fold": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "bnlk_band_sep": [_P, _P, _P, _P, *[_I] * 17, _F, _I, _P],
 }
 
 

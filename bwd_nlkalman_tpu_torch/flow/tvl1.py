@@ -95,20 +95,21 @@ def tvl1_flow_single_scale(i0, i1, u_init, tau=0.25, lambda_=0.15, theta=0.3, nw
 
 
 def _normalize_pair(i0, i1):
-    """Joint [0,255] normalization (image_normalization, tvl1flow_lib.c:303-337)."""
+    """Joint [0,255] normalization (image_normalization, tvl1flow_lib.c:303-337),
+    as one (2, H, W) stack."""
     mx = torch.maximum(i0.max(), i1.max())
     mn = torch.minimum(i0.min(), i1.min())
     den = mx - mn
     scale = torch.where(den > 0, 255.0 / torch.clamp(den, min=1e-30), 1.0)
     off = torch.where(den > 0, mn, 0.0)
-    return (i0 - off) * scale, (i1 - off) * scale
+    return (torch.stack([i0, i1]) - off) * scale
 
 
-def _prep_pair(i0, i1, bases=None):
-    """Luma + joint normalization + presmooth (tvl1flow_lib.c:382-386)."""
-    i0n, i1n = _normalize_pair(luma(i0.float()), luma(i1.float()))
-    return (gaussian_blur(i0n, PRESMOOTHING_SIGMA, bases),
-            gaussian_blur(i1n, PRESMOOTHING_SIGMA, bases))
+def _prep_pair(i0, i1, bases=None, engine: str = "auto"):
+    """Luma + joint normalization + presmooth (tvl1flow_lib.c:382-386): the
+    pair as one (2, H, W) stack, blurred in one product."""
+    ab = _normalize_pair(luma(i0.float()), luma(i1.float()))
+    return gaussian_blur(ab, PRESMOOTHING_SIGMA, bases, engine)
 
 
 def num_scales(w: int, h: int, nscales: int, zfactor: float) -> int:
@@ -170,16 +171,18 @@ def _solve_level(a, b, u, *, tau, lambda_, theta, nwarps, epsilon, max_iters,
         state_dtype=state_dtype, engine=engine)
 
 
-def _zoom_flow(u, nw, nh, zfactor, bases):
-    return torch.stack([zoom_in(u[..., 0], nw, nh, bases),
-                        zoom_in(u[..., 1], nw, nh, bases)], dim=-1) * (1.0 / zfactor)
+def _zoom_flow(u, nw, nh, zfactor, bases, engine="auto"):
+    """Both components of the (h, w, 2) flow u zoomed to (nh, nw, 2) in one
+    product, times 1 / zfactor."""
+    return zoom_in(u, nw, nh, bases, engine, planes_last=True, scale=1.0 / zfactor)
 
 
 class FlowOps:
     """The steps of a flow on whole frames: the image preparation, the
     pyramid's zoom, the flow's upscaling, a level's solve and the warm
-    gate. ``parallel.flow`` runs the same pyramid with their row-sharded
-    forms."""
+    gate. The pair of images of a level is one (2, H, W) stack, prepared
+    and zoomed in one product. ``parallel.flow`` runs the same pyramid with
+    their row-sharded forms."""
 
     def __init__(self, zfactor, bases, engine, tau, lambda_, theta, epsilon,
                  state_dtype="float32"):
@@ -189,13 +192,13 @@ class FlowOps:
         self.kw = dict(tau=tau, lambda_=lambda_, theta=theta, epsilon=epsilon)
 
     def prep(self, i0, i1):
-        return _prep_pair(i0, i1, self.bases)
+        return _prep_pair(i0, i1, self.bases, self.engine)
 
-    def zoom_out(self, a):
-        return zoom_out(a, self.zfactor, self.bases)
+    def zoom_out(self, ab):
+        return zoom_out(ab, self.zfactor, self.bases, self.engine)
 
     def zoom_flow(self, u, nw, nh):
-        return _zoom_flow(u, nw, nh, self.zfactor, self.bases)
+        return _zoom_flow(u, nw, nh, self.zfactor, self.bases, self.engine)
 
     def solve(self, a, b, u, nwarps, max_iters):
         return _solve_level(a, b, u, nwarps=nwarps, max_iters=max_iters,
@@ -228,15 +231,14 @@ def flow_pyramid(i0, i1, ops: FlowOps, nscales=100, fscale=0, zfactor=0.5, nwarp
                  max_iters: int | None = None, return_carry: bool = False):
     """:func:`tvl1_flow` with its steps taken by ``ops``."""
     max_iters = MAX_ITERATIONS if max_iters is None else max_iters
-    i0n, i1n = ops.prep(i0, i1)
-    h, w = i0n.shape
+    ab = ops.prep(i0, i1)
+    h, w = ab.shape[1:]
     ns = num_scales(w, h, nscales, zfactor)
     fs = min(fscale, ns)
     sizes = _pyramid_sizes(w, h, ns, zfactor)
-    pyr = [(i0n, i1n)]
+    pyr = [ab]
     for _ in range(1, ns):
-        a, b = pyr[-1]
-        pyr.append((ops.zoom_out(a), ops.zoom_out(b)))
+        pyr.append(ops.zoom_out(pyr[-1]))
 
     def solve(a, b, u):
         return ops.solve(a, b, u, nwarps, max_iters)
@@ -249,8 +251,8 @@ def flow_pyramid(i0, i1, ops: FlowOps, nscales=100, fscale=0, zfactor=0.5, nwarp
         u = _upsample_chain(u_fs, sizes, fs, ops)
     else:
         cw, ch_ = sizes[-1]
-        u_fs = i0n.new_zeros((ch_, cw, 2))
-        u = i0n.new_zeros((h, w, 2))
+        u_fs = ab.new_zeros((ch_, cw, 2))
+        u = ab.new_zeros((h, w, 2))
     return (u, u_fs) if return_carry else u
 
 
@@ -299,14 +301,15 @@ def flow_pyramid_warm(i0, i1, u_carry, ops: FlowOps, nscales=100, fscale=0,
                       warm_max_iters: int | None = None):
     """:func:`tvl1_flow_warm` with its steps taken by ``ops``."""
     max_iters = MAX_ITERATIONS if max_iters is None else max_iters
-    a, b = ops.prep(i0, i1)
-    h, w = a.shape
+    ab = ops.prep(i0, i1)
+    h, w = ab.shape[1:]
     ns = num_scales(w, h, nscales, zfactor)
     fs = min(fscale, ns)
     # the level-fscale size, past the coarsest level where fscale is
     sizes = _pyramid_sizes(w, h, max(ns, fs + 1), zfactor)
     for _ in range(fs):
-        a, b = ops.zoom_out(a), ops.zoom_out(b)
+        ab = ops.zoom_out(ab)
+    a, b = ab
 
     def solve(a, b, u, nwarps=nwarps, max_iters=max_iters):
         return ops.solve(a, b, u, nwarps, max_iters)
@@ -319,10 +322,9 @@ def flow_pyramid_warm(i0, i1, u_carry, ops: FlowOps, nscales=100, fscale=0,
                      max_iters=max_iters if warm_max_iters is None
                      else warm_max_iters)
     else:
-        pyr = [(a, b)]
+        pyr = [ab]
         for _ in range(fs + 1, ns):
-            pa, pb = pyr[-1]
-            pyr.append((ops.zoom_out(pa), ops.zoom_out(pb)))
+            pyr.append(ops.zoom_out(pyr[-1]))
         u_fs = _coarse_to_fine(pyr, sizes[fs:], solve, ops)
     return _upsample_chain(u_fs, sizes, fs, ops), u_fs
 
@@ -349,12 +351,12 @@ def warm_gate_probe(i0, i1, u_carry, fscale: int = 0, zfactor: float = 0.5,
     normalisation, presmoothing, the zoom chain to the fscale level), then
     (ok, r_warm, r_zero) of :func:`warm_gate` for the carry, so that a
     caller can check which branch a warm step took."""
-    a, b = _prep_pair(i0, i1, bases)
-    h, w = a.shape
+    ab = _prep_pair(i0, i1, bases, engine)
+    h, w = ab.shape[1:]
     ns = num_scales(w, h, nscales, zfactor)
     for _ in range(min(fscale, ns)):
-        a, b = zoom_out(a, zfactor, bases), zoom_out(b, zfactor, bases)
-    return warm_gate(a, b, u_carry.to(torch.float32), engine)
+        ab = zoom_out(ab, zfactor, bases, engine)
+    return warm_gate(ab[0], ab[1], u_carry.to(torch.float32), engine)
 
 
 def flow_energy(i0, i1, flow, lambda_: float = 0.15,

@@ -5,7 +5,9 @@ numpy function of ``args``. A ``bases`` mapping (from :func:`basis_name`
 to tensor) is the one source of constants for a call that passes it:
 ``NLKalmanDenoiser`` registers the constants of its frame size as buffers
 and passes them down, and :func:`make_bases` builds such a mapping for
-any other caller. A call given ``bases=None`` builds what it needs then.
+any other caller. Such a mapping also holds the band form of each blur
+and zoom matrix among its keys (``band_cuda.band_builds``), which G
+applies on the card. A call given ``bases=None`` builds what it needs then.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import Callable, Mapping
 import numpy as np
 import torch
 
+from .band_cuda import band_builds
 
 def basis_name(key: tuple) -> str:
     """Buffer-safe name of a constant key, e.g. ('blur', 48, 0.8) -> 'blur_48_0p8'."""
@@ -27,7 +30,9 @@ def _build(key: tuple, build: Callable[..., np.ndarray], device) -> torch.Tensor
 
 def make_bases(builds: Mapping[tuple, Callable[..., np.ndarray]],
                device=None) -> dict[str, torch.Tensor]:
-    """A ``bases`` mapping holding ``build(*key[1:])`` for every key of ``builds``."""
+    """A ``bases`` mapping holding ``build(*key[1:])`` for every key of
+    ``builds``, and the band form of each blur and zoom matrix among them."""
+    builds = {**builds, **band_builds(builds)}
     return {basis_name(k): _build(k, b, device) for k, b in builds.items()}
 
 

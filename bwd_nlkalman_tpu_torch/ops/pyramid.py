@@ -196,7 +196,7 @@ def lanczos3_decompose(img: torch.Tensor, levels: int):
 
 
 def lanczos3_recompose(levels_imgs, sigma_blur: float = 1.0,
-                       bases=None) -> torch.Tensor:
+                       bases=None, engine: str = "auto") -> torch.Tensor:
     """Laplacian-style merge, coarse to fine: ret = yH + up(gblur(yL -
     down(yH))) (lib/ms-lanczos3/recompose.m:26), the blur per channel."""
     out = levels_imgs[-1]
@@ -204,10 +204,7 @@ def lanczos3_recompose(levels_imgs, sigma_blur: float = 1.0,
         y_h = levels_imgs[i]
         diff = out - lanczos3_down(y_h)
         if sigma_blur > 0:
-            if diff.ndim == 3:
-                diff = torch.stack([gaussian_blur(diff[..., c], sigma_blur, bases)
-                                    for c in range(diff.shape[-1])], dim=-1)
-            else:
-                diff = gaussian_blur(diff, sigma_blur, bases)
+            diff = gaussian_blur(diff, sigma_blur, bases, engine,
+                                 planes_last=diff.ndim == 3)
         out = y_h + lanczos3_up(diff, y_h.shape[0], y_h.shape[1])
     return out

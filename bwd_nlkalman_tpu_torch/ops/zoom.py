@@ -2,8 +2,9 @@
 
 Port of ``bwd_nlkalman_tpu.ops.zoom``: both zooms are separable with
 fixed sample positions, so each axis is a dense numpy-built matrix and
-the zoom is two full-fp32 matrix products. The matrix-building functions are
-copies of the JAX package's.
+the zoom is their separable product (``gaussian.sep_product``: G on CUDA
+tensors, two full-fp32 matrix products else). The matrix-building
+functions are copies of the JAX package's.
 """
 
 from __future__ import annotations
@@ -14,8 +15,7 @@ import math
 import numpy as np
 import torch
 
-from .bases import basis
-from .gaussian import apply_sep, blur_matrix_np
+from .gaussian import blur_matrix_np, plane_shape, sep_product
 
 ZOOM_SIGMA_ZERO = 0.6
 
@@ -64,21 +64,18 @@ def zoom_in_keys(h: int, w: int, nxx: int, nyy: int) -> list[tuple]:
     return [("resample", nyy, h, h / nyy), ("resample", nxx, w, w / nxx)]
 
 
-def zoom_out(im: torch.Tensor, factor: float, bases=None) -> torch.Tensor:
-    """Downsample a (H, W) image by ``factor`` in (0, 1)."""
-    ky, kx = zoom_out_keys(*im.shape, factor)
-    return apply_sep(
-        im,
-        basis(bases, ky, _zoom_out_matrix_np, im.device),
-        basis(bases, kx, _zoom_out_matrix_np, im.device),
-    )
+def zoom_out(im: torch.Tensor, factor: float, bases=None,
+             engine: str = "auto") -> torch.Tensor:
+    """Downsample a (H, W) image, or each plane of a (P, H, W) stack, by
+    ``factor`` in (0, 1)."""
+    ky, kx = zoom_out_keys(*plane_shape(im), factor)
+    return sep_product(im, ky, kx, _zoom_out_matrix_np, bases, engine)
 
 
-def zoom_in(im: torch.Tensor, nxx: int, nyy: int, bases=None) -> torch.Tensor:
-    """Upsample a (H, W) image to (nyy, nxx) (zoom.c:87-111)."""
-    ky, kx = zoom_in_keys(*im.shape, nxx, nyy)
-    return apply_sep(
-        im,
-        basis(bases, ky, _resample_matrix_np, im.device),
-        basis(bases, kx, _resample_matrix_np, im.device),
-    )
+def zoom_in(im: torch.Tensor, nxx: int, nyy: int, bases=None, engine: str = "auto",
+            planes_last: bool = False, scale: float | None = None) -> torch.Tensor:
+    """Upsample a (H, W) image, or each plane of a stack
+    (``gaussian.sep_product``'s layouts), to (nyy, nxx) (zoom.c:87-111),
+    times ``scale`` if given."""
+    ky, kx = zoom_in_keys(*plane_shape(im, planes_last), nxx, nyy)
+    return sep_product(im, ky, kx, _resample_matrix_np, bases, engine, planes_last, scale)

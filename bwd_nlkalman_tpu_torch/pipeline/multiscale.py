@@ -108,7 +108,7 @@ def lz3_filter_sequence(noisy, sigma, levels=None, rec=0.7, engine="auto",
     levels = levels or auto_pyramid_levels(*noisy.shape[1:3])
     return _filter_sequence(
         noisy, sigma, levels, lambda x: lanczos3_decompose(x, levels),
-        lambda lv: lanczos3_recompose(lv, rec, bases), flow_cfg or LZ3_FLOW, 2.0, engine,
+        lambda lv: lanczos3_recompose(lv, rec, bases, engine), flow_cfg or LZ3_FLOW, 2.0, engine,
         bases, window_dtype)
 
 
@@ -129,7 +129,7 @@ def lz3_smooth_sequence(flt2, flt2_levels, sigma, rec=0.7, engine="auto",
         for lv in range(levels - 1, -1, -1):
             smo_l[lv] = smooth_pair(flt2_levels[lv][t], pyr_s0[lv], sigma, ps,
                                     cfg, engine, bases, window_dtype)
-        smo[t] = lanczos3_recompose(smo_l, rec, bases) if levels > 1 else smo_l[0]
+        smo[t] = lanczos3_recompose(smo_l, rec, bases, engine) if levels > 1 else smo_l[0]
     return torch.stack(smo)
 
 

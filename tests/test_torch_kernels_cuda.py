@@ -636,3 +636,168 @@ def test_sharded_flow_bf16_on_one_card(dev):
     k2.LAUNCHES.reset()
     got = sharded_tvl1_flow(i0, i1, make_mesh(1, 2, ["cuda:0"] * 2), **kw)
     assert k2.LAUNCHES.count > 0 and torch.equal(got, want)
+
+
+def _fmaf(w, x, acc):
+    """fmaf(w, x, acc) on float32 arrays, exactly: the product is exact in
+    float64, and the float64 sum's rounding error (two-sum) settles the
+    float32 ties that rounding twice would get wrong."""
+    p = w.astype(np.float64) * x.astype(np.float64)
+    a = np.asarray(acc, np.float32).astype(np.float64)
+    s = p + a
+    z = s - p
+    e = (p - (s - z)) + (a - z)
+    r = s.astype(np.float32)
+    o = np.nextafter(r, np.where(s > r, np.float32(np.inf), np.float32(-np.inf)))
+    tie = (e != 0) & (s == (r.astype(np.float64) + o.astype(np.float64)) / 2)
+    return np.where(tie & ((e > 0) == (o > r)), o, r)
+
+
+def _band_chain(x, band_y, band_x, fma):
+    """The two passes of G over the (..., H, W) planes of x, rows first,
+    each output ``acc = fma(w[t], x[lo + t], acc)`` over its taps in
+    ascending order from zero; each band is (lo, weights)."""
+    (lo_y, w_y), (lo_x, w_x) = band_y, band_x
+    mid = np.float32(0)
+    for t in range(w_x.shape[1]):
+        mid = fma(w_x[:, t], x[..., lo_x + t], mid)
+    out = np.float32(0)
+    for t in range(w_y.shape[1]):
+        out = fma(w_y[:, t, None], mid[..., lo_y + t, :], out)
+    return out
+
+
+def _hold_band(got, x, key_y, key_x, build, scale=1.0, planes_last=False):
+    """G's output ``got`` is the ascending fma chain's bits (``_band_chain``)
+    on x, times ``scale``; returns the bound that rounding puts on any
+    other order of the same sums, the dense products' included: twice
+    gamma(Ty + Tx) of the sums of absolute terms, per output."""
+    from bwd_nlkalman_tpu_torch.ops.band_cuda import band_of, band_parts
+
+    by, bx = (band_parts(band_of(build, *k)) for k in (key_y, key_x))
+    xp = np.moveaxis(x, -1, 0) if planes_last else x
+    want = _band_chain(xp, by, bx, _fmaf) * np.float32(scale)
+    mag = _band_chain(np.abs(xp).astype(np.float64),
+                      *((lo, np.abs(w).astype(np.float64)) for lo, w in (by, bx)),
+                      lambda w, v, acc: w * v + acc)
+    if planes_last:
+        want, mag = np.moveaxis(want, 0, -1), np.moveaxis(mag, 0, -1)
+    g = got.cpu().numpy()
+    assert g.shape == want.shape and np.array_equal(g, want)
+    n = by[1].shape[1] + bx[1].shape[1]
+    return 2 * n * 2.0 ** -24 / (1 - n * 2.0 ** -24) * mag * abs(scale)
+
+
+def _flow_products(h, w):
+    """(step, (P, H, W) input shape or the (h, w, 2) flow's, output (H, W))
+    of each product of a flow on (h, w) frames: the pair's blur, every
+    zoom-out of the pair and every zoom-in of the flow."""
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+
+    sizes = tvl1._pyramid_sizes(w, h, tvl1.num_scales(w, h, 100, 0.5), 0.5)
+    out = [("blur", (2, h, w), (h, w))]
+    for s, ((pw, ph), (nw, nh)) in enumerate(zip(sizes, sizes[1:])):
+        out.append((f"zoomout{s}", (2, ph, pw), (nh, nw)))
+        out.append((f"zoomin{s + 1}", (nh, nw, 2), (ph, pw)))
+    return out
+
+
+# the share of the any-order rounding bound that the dense products may
+# reach against G: twice the most measured on an H100 (0.25)
+BAND_GAP_SHARE = 0.5
+
+BAND_CASES = [(f"{h}x{w}-{step}", step, shape, size)
+              for h, w in [(1080, 1920), (400, 400)]
+              for step, shape, size in _flow_products(h, w)]
+
+
+@pytest.mark.parametrize("name,step,shape,size", BAND_CASES, ids=[c[0] for c in BAND_CASES])
+def test_band_kernel_is_the_ascending_chain(dev, name, step, shape, size):
+    """G on the flow's blur, zoom-outs and flow zoom-ins of the 1080p and
+    400x400 pyramids, in one launch a call: the bits of each output's taps
+    summed by fma in ascending order from zero, and the dense cuBLAS
+    products (the plain version) within the rounding of another order.
+    cuBLAS sums most of these shapes in k-slices of its own, so its bits
+    are not G's."""
+    from bwd_nlkalman_tpu_torch.flow import tvl1
+    from bwd_nlkalman_tpu_torch.ops import band_cuda, gaussian, zoom
+
+    rng = np.random.default_rng(len(name))
+    band_cuda.LAUNCHES.reset()
+    if step == "blur":
+        x = rng.uniform(0, 255, shape).astype(np.float32)
+        xt = _t(x, dev)
+        got = gaussian.gaussian_blur(xt, tvl1.PRESMOOTHING_SIGMA)
+        want = torch.stack([gaussian.gaussian_blur(p, tvl1.PRESMOOTHING_SIGMA, engine="plain")
+                            for p in xt])
+        keys, build, kw = [("blur", n, tvl1.PRESMOOTHING_SIGMA) for n in shape[1:]], \
+            gaussian.blur_matrix_np, {}
+    elif step.startswith("zoomout"):
+        x = rng.uniform(0, 255, shape).astype(np.float32)
+        xt = _t(x, dev)
+        got = zoom.zoom_out(xt, 0.5)
+        want = torch.stack([zoom.zoom_out(p, 0.5, engine="plain") for p in xt])
+        keys, build, kw = zoom.zoom_out_keys(*shape[1:], 0.5), zoom._zoom_out_matrix_np, {}
+    else:
+        x = rng.uniform(-8, 8, shape).astype(np.float32)
+        u = _t(x, dev)
+        h, w = size
+        got = tvl1._zoom_flow(u, w, h, 0.5, None)
+        want = torch.stack([zoom.zoom_in(u[..., 0], w, h, engine="plain"),
+                            zoom.zoom_in(u[..., 1], w, h, engine="plain")], dim=-1) * 2.0
+        keys, build = zoom.zoom_in_keys(*shape[:2], w, h), zoom._resample_matrix_np
+        kw = dict(scale=2.0, planes_last=True)
+    assert band_cuda.LAUNCHES.count == 1
+    bound = _hold_band(got, x, *keys, build, **kw)
+    gap = np.abs(got.cpu().numpy().astype(np.float64) - want.cpu().numpy())
+    # on an H100 the dense products came within 0.09-0.25 of the bound
+    assert got.shape == want.shape and (gap <= BAND_GAP_SHARE * bound).all()
+
+
+@pytest.mark.parametrize("layout", ["plane", "planes", "strided", "last"])
+@pytest.mark.parametrize("h,w,sigma", [(1, 1, 0.8), (9, 15, 0.8), (25, 41, 0.8),
+                                       (135, 240, 0.7), (270, 480, 3.0), (68, 120, 12.0)])
+def test_band_kernel_layouts_are_the_ascending_chain(dev, h, w, sigma, layout):
+    """G on one plane, a stack of planes, the planes of a strided view and
+    planes last (the multiscale recompose's channels), at ragged sizes and
+    at blurs wide enough to take the plan's smaller tiles: the ascending
+    fma chain's bits in one launch, each plane of a stack on a 128-byte
+    line."""
+    from bwd_nlkalman_tpu_torch.ops import band_cuda, gaussian
+
+    rng = np.random.default_rng(h + w)
+    full = rng.uniform(0, 255, (h, w, 3)).astype(np.float32)
+    ft = _t(full, dev)
+    x = {"plane": ft[..., 0], "planes": ft.permute(2, 0, 1).contiguous(),
+         "strided": ft.permute(2, 0, 1), "last": ft}[layout]
+    band_cuda.LAUNCHES.reset()
+    got = gaussian.gaussian_blur(x, sigma, planes_last=layout == "last")
+    assert band_cuda.LAUNCHES.count == 1
+    keys = [("blur", n, float(sigma)) for n in (h, w)]
+    ref = {"plane": full[..., 0], "last": full}.get(layout, np.moveaxis(full, -1, 0))
+    _hold_band(got, ref, *keys, gaussian.blur_matrix_np, planes_last=layout == "last")
+    if layout == "last":
+        assert got.is_contiguous()
+    elif layout != "plane":
+        assert all(got[c].data_ptr() % 128 == 0 for c in range(3))
+
+
+def test_band_kernel_launches_15_a_cell_flow(dev):
+    """G's counter on the benchmark cells' path (cold TV-L1 at fscale 1 on
+    1080p gray, ``FlowConfig``'s defaults): 15 launches a flow (the pair's
+    blur, 7 zoom-outs of the pair, 7 zoom-ins of the flow), and 15 a flow
+    over a request of the denoiser, which makes 2 (T - 1) flows."""
+    from bwd_nlkalman_tpu_torch.ops import band_cuda
+    from bwd_nlkalman_tpu_torch.pipeline import FlowConfig, NLKalmanDenoiser
+
+    t, h, w = 3, 1080, 1920
+    rng = np.random.default_rng(15)
+    noisy = _t(rng.uniform(0, 255, (t, h, w, 1)).astype(np.float32), dev)
+    cfg = FlowConfig()
+    model = NLKalmanDenoiser(20.0, h, w, cfg, device=dev)
+    band_cuda.LAUNCHES.reset()
+    cfg.flow(noisy[0, ..., 0], noisy[1, ..., 0])
+    assert band_cuda.LAUNCHES.count == 15
+    band_cuda.LAUNCHES.reset()
+    model(noisy)
+    assert band_cuda.LAUNCHES.count == 15 * 2 * (t - 1)

@@ -178,7 +178,7 @@ def test_port_never_imports_jax(tmp_path):
         "assert all(torch.isfinite(o).all() for f in x for o in sd.step(f))\n"
         "out = P.MultiscaleDenoiser(20.0, 24, 32, levels=2, pyramid='lz3', device='cpu')(x)\n"
         "assert all(torch.isfinite(o).all() for o in out)\n"
-        "assert set(P.kernel_counters()) == {'K1', 'K2', 'K3', 'K4', 'K4c9', 'K4grp', 'P'}\n"
+        "assert set(P.kernel_counters()) == {'K1', 'K2', 'K3', 'K4', 'K4c9', 'K4grp', 'P', 'G'}\n"
         "m = parallel.make_mesh(1, 2, ['cpu'] * 2)\n"
         "y = torch.from_numpy(np.random.default_rng(1).uniform(0, 255, (2, 48, 32))"
         ".astype(np.float32))\n"
@@ -238,7 +238,7 @@ def test_cpu_run_launches_no_kernel():
     seq.denoise_sequence(torch.from_numpy(noisy), SIGMA,
                          flow_cfg=seq.FlowConfig(warm_start=True))
     assert {k: c.count for k, c in kernel_counters().items()} == {
-        "K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4c9": 0, "K4grp": 0, "P": 0}
+        "K1": 0, "K2": 0, "K3": 0, "K4": 0, "K4c9": 0, "K4grp": 0, "P": 0, "G": 0}
 
 
 def test_non_cpu_non_cuda_device_raises():
